@@ -6,7 +6,8 @@
 Phases (any failed check raises; the exit code is then nonzero):
  1. print the card's name and power limit (nvidia-smi);
  2. build the CUDA kernels from sfgwas_tpu_torch/csrc with nvcc (sm_90a),
-    one nvcc per source, all started together;
+    one nvcc per source, all started together, and print each kernel's
+    registers and spills from ptxas (a spill in K2 or K3 fails the run);
  3. the main path at PN14QP438, with every kernel launch count set to 0
     first: local keygen with rotation keys for exactly the shifts the plan
     needs, the diagonal encode of a 1000 x 4546 int8 genotype block in
@@ -14,11 +15,16 @@ Phases (any failed check raises; the exit code is then nonzero):
     warm-up call, 3 timed calls), decrypt and decode against Q^T G in numpy
     (abs err < 1e-2); the counts are read right after.  Then one more call
     is timed stage by stage (synchronized spans) and one is traced with
-    torch.profiler (device time by kernel, the device's idle share);
+    torch.profiler (device time by kernel, the device's idle share; a read
+    of a device value by the host, aten::_local_scalar_dense, fails the
+    run);
  4. the same product through the plain torch versions of every kernel on
     the card: the output ciphertexts must be bit-identical;
  5. each kernel against its plain version on the main path's own inputs
-    (bit equality), with both timed by CUDA events;
+    (bit equality), with both timed by CUDA events, at every shape the
+    main path launches it with: K1 at the hoisted ModUp's batch and at the
+    grouped ModUp's forward batch, K3 at the hoisted and the grouped
+    shapes, K2 at the block row;
  6. one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
@@ -39,9 +45,11 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-# integer multiplies per second: the card's 67 TFLOP/s float32 rate outside
-# the tensor cores, the table's only non-tensor entry; the int32 pipe is
-# not faster, so this bounds the time from below
+# integer operations per second: the card's 67 TFLOP/s float32 rate outside
+# the tensor cores (NVIDIA data sheet), the only non-tensor rate published;
+# a multiply-add counts as two operations, as a fused multiply-add does in
+# that rate, and the int32 pipe is not faster, so this bounds the time from
+# below.  It is the script's only integer peak.
 INT_OPS_PER_S = 67e12
 
 
@@ -100,6 +108,7 @@ def _profile(torch, fn, path: str) -> dict:
             cur_e = max(cur_e, t)
     busy += cur_e - cur_s
     window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    readbacks = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -107,6 +116,7 @@ def _profile(torch, fn, path: str) -> dict:
         "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "device_sum_ms": sum(by_name.values()) / 1e3, "idle_share": 1 - busy / window,
         "kernels": len(dev), "top_ms": [[k[:80], v / 1e3] for k, v in top[:15]],
+        "host_readbacks": readbacks,
     }
 
 
@@ -137,6 +147,10 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     _say(smi)
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -145,8 +159,15 @@ def main() -> int:
     secs = cuda_build.build()
     _say(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
          f"({time.time() - t0:.1f} s wall)")
-    for name in cuda_build.SOURCES:
-        _say(cuda_build.ptxas_report(name))
+    ptxas = {name: cuda_build.ptxas_report(name) for name in cuda_build.SOURCES}
+    for name, rep in ptxas.items():
+        for k in rep:
+            _say(f"ptxas {name}: {k['kernel'][:60]} {k['registers']} registers, "
+                 f"spills {k['spill_stores']}/{k['spill_loads']} B, smem {k['smem']} B")
+    spilled = [k["kernel"] for n in ("mac_dense", "ks_digit") for k in ptxas[n]
+               if k["spill_stores"] or k["spill_loads"]]
+    if spilled or not all(ptxas[n] for n in cuda_build.SOURCES):
+        raise AssertionError(f"ptxas: spills in {spilled} or no report")
 
     # ---- 3. the main path
     cuda_build.reset_launch_counts()
@@ -221,6 +242,9 @@ def main() -> int:
                         os.path.join(out_dir, "mm_profile.txt"))
     profiled["stages_ms"] = stages
     _say(f"profile of one mat_mult_cached: {json.dumps(profiled)}")
+    if profiled["host_readbacks"]:
+        raise AssertionError(f"mat_mult_cached read {profiled['host_readbacks']} device "
+                             "values back to the host")
 
     # ---- 4. the product through the plain versions, on the card
     pctx = C.CkksContext(params, device=dev, kernels=False)
@@ -241,86 +265,118 @@ def main() -> int:
     kernels = []
     ext_rows = tuple(range(nmod)) + (ctx.sp_row,)
     N = ctx.n
+    logn = ctx.params.logn
 
-    # K1 at the hoisted ModUp's batched NTT: [nmod+1, nmod*s, N]
-    L, Bn = len(ext_rows), nmod * ncols
-    qcol = torch.tensor([params.basis.primes[r] for r in ext_rows], device=dev)[:, None, None]
-    x = torch.remainder(
-        torch.randint(0, 1 << 30, (L, Bn, N), device=dev, dtype=torch.int64), qcol
-    ).to(torch.int32)
-    for inverse, name, line in ((False, "ntt_fwd", 90), (True, "ntt_inv", 114)):
-        y = cuda_ntt.ntt_b_kernel(x, params.basis, ext_rows, inverse)
-        yp = rns._ntt_b_butterfly(x, params.basis, ext_rows, inverse)
+    def check(name, kernel, route_src, replaces, shape, run, run_plain, reps, preps,
+              nbytes, ops, timed=None):
+        """Bit equality of run() and run_plain() (lists of tensors), then
+        both timed; `timed` = (kernel, plain) callables to time instead."""
+        got, want = run(), run_plain()
         torch.cuda.synchronize()
-        eq = _same(torch, y, yp)
-        ms = _time_ms(torch, lambda: cuda_ntt.ntt_b_kernel(x, params.basis, ext_rows, inverse), 20)
-        pms = _time_ms(torch, lambda: rns._ntt_b_butterfly(x, params.basis, ext_rows, inverse), 3)
-        stages = ctx.params.logn * (N // 2) + (N if inverse else 0)  # Shoup multiplies per poly
-        nbytes = 2 * L * Bn * N * 4 + 2 * L * N * 4
-        bms, by = _bound_ms(nbytes, 3 * L * Bn * stages)
+        eq = all(_same(torch, a, b) for a, b in zip(got, want))
+        err = 0 if eq else max(float((a.long() - b.long()).abs().max())
+                               for a, b in zip(got, want))
+        del got, want
+        ms = _time_ms(torch, (timed or (run, run_plain))[0], reps)
+        pms = _time_ms(torch, (timed or (run, run_plain))[1], preps)
+        bms, by = _bound_ms(nbytes, ops)
         kernels.append(dict(
-            name=name, route="cuda", source="sfgwas_tpu_torch/csrc/ntt.cu",
-            replaces=f"sfgwas_tpu/ops/pallas_ntt.py:{line}", shape=[L, Bn, N],
-            bit_equal=eq, max_abs_err=0 if eq else float((y.long() - yp.long()).abs().max()),
-            ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
+            name=name, kernel=kernel, route="cuda", source=route_src, replaces=replaces,
+            shape=shape, bit_equal=eq, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+            bound_by=by, library_ms=None,
         ))
+        torch.cuda.empty_cache()
+
+    # K1 at the hoisted ModUp's batched NTT [nmod+1, nmod*s, N] and at the
+    # grouped ModUp's forward NTT [nmod+1, nmod*s*61, N]
+    plan = MM._plan_for(cps, cache, nmod, row_batch=ncols)
+    gi = plan.giant_index(ctx)
+    L = len(ext_rows)
+    qcol = torch.tensor([params.basis.primes[r] for r in ext_rows], device=dev)[:, None, None]
+    shapes = [("ntt_fwd", False, nmod * ncols, 90), ("ntt_inv", True, nmod * ncols, 114),
+              ("ntt_fwd", False, nmod * ncols * len(gi["gels"]), 90)]
+    for sym, inverse, Bn, line in shapes:
+        x = torch.remainder(
+            torch.randint(0, 1 << 30, (L, Bn, N), device=dev, dtype=torch.int64), qcol
+        ).to(torch.int32)
+        grouped = Bn > nmod * ncols
+        stages_ = logn * (N // 2) + (N if inverse else 0)  # Shoup multiplies per poly
+        check(
+            sym + (" (grouped ModUp)" if grouped else ""), sym, "sfgwas_tpu_torch/csrc/ntt.cu",
+            f"sfgwas_tpu/ops/pallas_ntt.py:{line}", [L, Bn, N],
+            lambda: [cuda_ntt.ntt_b_kernel(x, params.basis, ext_rows, inverse)],
+            lambda: [rns._ntt_b_butterfly(x, params.basis, ext_rows, inverse)],
+            5 if grouped else 20, 1 if grouped else 3,
+            2 * L * Bn * N * 4 + 2 * L * N * 4, 3 * L * Bn * stages_,
+        )
+        del x
 
     # K3 at the hoisted rotations of the real A against the real baby keys
-    plan = MM._plan_for(cps, cache, nmod, row_batch=ncols)
     babies = [b for b in plan.babies[0] if b % params.slots != 0]
     gl = [ctx.galois_for_rotation(b) for b in babies]
     ik0, ik1 = cps.stacked_keys_inv(gl, nmod)
     C1s = torch.stack([A[i][0].c1 for i in range(ncols)])
-    ext = ctx.decompose_ntt_b(C1s, nmod).contiguous()[None]
     q_ext = ctx._t(ext_rows)["q"]
-    k0, k1 = ik0[None], ik1[None]
-    o = C.ks_digit_product(ext, k0, k1, q_ext, ctx.params.logn)
-    op = C.ks_digit_product_plain(ext, k0, k1, q_ext)
-    torch.cuda.synchronize()
-    eq = _same(torch, o[0], op[0]) and _same(torch, o[1], op[1])
-    ms = _time_ms(torch, lambda: C.ks_digit_product(ext, k0, k1, q_ext, ctx.params.logn), 10)
-    pms = _time_ms(torch, lambda: C.ks_digit_product_plain(ext, k0, k1, q_ext), 2)
-    G, S, J, X, _ = ext.shape
-    Bk = k0.shape[1]
-    nbytes = 4 * N * (G * S * J * X + 2 * G * Bk * J * X + 2 * G * S * Bk * X)
-    bms, by = _bound_ms(nbytes, 2 * 2 * G * S * Bk * J * X * N)
-    kernels.append(dict(
-        name="ks_digit_product", route="cuda", source="sfgwas_tpu_torch/csrc/ks_digit.cu",
-        replaces="sfgwas_tpu/crypto/ckks.py:993", shape=[G, S, Bk, J, X, N],
-        bit_equal=eq, max_abs_err=0 if eq else float((o[0].long() - op[0].long()).abs().max()),
-        ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
-    ))
+    mu_ext = rns.barrett_mu64(params.basis, ext_rows, dev)
+
+    def ks_check(name, ext, k0, k1, reps, preps):
+        G, S, J, X, _ = ext.shape
+        Bk = k0.shape[1]
+        nbytes = 4 * N * (G * S * J * X + 2 * G * Bk * J * X + 2 * G * S * Bk * X)
+        macs = 2 * G * S * Bk * J * X * N
+        check(name, "ks_digit_product", "sfgwas_tpu_torch/csrc/ks_digit.cu",
+              "sfgwas_tpu/crypto/ckks.py:993" if Bk > 1 else "sfgwas_tpu/crypto/ckks.py:1050",
+              [G, S, Bk, J, X, N],
+              lambda: C.ks_digit_product(ext, k0, k1, q_ext, mu_ext, logn),
+              lambda: C.ks_digit_product_plain(ext, k0, k1, q_ext), reps, preps,
+              nbytes, 2 * macs)
+
+    ext = ctx.decompose_ntt_b(C1s, nmod).contiguous()[None]
+    ks_check("ks_digit_product (hoisted)", ext, ik0[None], ik1[None], 10, 2)
+    del ext
 
     # K2 at the real block row: the baby rotations of A and the whole cache
     R0, R1 = MM.baby_rotations(cps, A, plan, 0)
     (g,) = plan.groups()[0]
     q_mm = ctx._t(range(nmod))["q"]
-    margs = (R0, R1, g["polys"], g["idx"], g["bidx"], g["run_start"], g["run_sg"], q_mm)
+    mu_mm = rns.barrett_mu64(params.basis, range(nmod), dev)
+    runs = g["runs"]
     acc_shape = (len(plan.segments) + 1, ncols, nmod, N)
     zeros = lambda: torch.zeros(acc_shape, dtype=torch.int32, device=dev)  # noqa: E731
-    a0, a1 = MM.mac_dense(zeros(), zeros(), *margs, logn=ctx.params.logn)
-    p0, p1 = MM.mac_dense_plain(zeros(), zeros(), *margs)
-    torch.cuda.synchronize()
-    eq = _same(torch, a0, p0) and _same(torch, a1, p1)
-    acc0, acc1 = zeros(), zeros()
-    ms = _time_ms(torch, lambda: MM.mac_dense(acc0, acc1, *margs, logn=ctx.params.logn), 5)
-    pms = _time_ms(torch, lambda: MM.mac_dense_plain(acc0, acc1, *margs), 1)
-    nruns = g["run_sg"].shape[0]
-    nbytes = 4 * (2 * len(plan.babies[0]) * ncols * nmod * N  # R0, R1 rows in use
+    tacc0, tacc1 = zeros(), zeros()  # timed in place, as the product runs it
+    E = int(runs.run_start_host[-1])
+    nbytes = 4 * (2 * R0.shape[0] * ncols * nmod * N  # R0, R1: the row's babies
                   + k_total * nmod * N  # the diagonal polys
-                  + 2 * 2 * nruns * ncols * nmod * N)  # ACC rows read and written
-    bms, by = _bound_ms(nbytes, 2 * 2 * k_total * ncols * nmod * N)
-    kernels.append(dict(
-        name="mac_dense", route="cuda", source="sfgwas_tpu_torch/csrc/mac_dense.cu",
-        replaces="sfgwas_tpu/gwas/matmult.py:504",
-        shape=[int(g["idx"].shape[0]), int(g["idx"].shape[1]), ncols, nmod, N],
-        bit_equal=eq, max_abs_err=0 if eq else float((a0.long() - p0.long()).abs().max()),
-        ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
-    ))
+                  + 2 * 2 * runs.nruns * ncols * nmod * N)  # ACC rows read and written
+    macs = 2 * E * ncols * nmod * N
+    check(
+        "mac_dense", "mac_dense", "sfgwas_tpu_torch/csrc/mac_dense.cu",
+        "sfgwas_tpu/gwas/matmult.py:504", [runs.nruns, E, R0.shape[0], ncols, nmod, N],
+        lambda: MM.mac_dense(zeros(), zeros(), R0, R1, g["polys"], runs, q_mm, mu_mm, logn),
+        lambda: MM.mac_dense_plain(zeros(), zeros(), R0, R1, g["polys"], runs, q_mm),
+        5, 1, nbytes, 2 * macs,
+        timed=(lambda: MM.mac_dense(tacc0, tacc1, R0, R1, g["polys"], runs, q_mm, mu_mm, logn),
+               lambda: MM.mac_dense_plain(tacc0, tacc1, R0, R1, g["polys"], runs, q_mm)),
+    )
+    del tacc0, tacc1
+    # the real accumulators of this block row, for K3's grouped shape
+    acc0, acc1 = MM.mac_dense(zeros(), zeros(), R0, R1, g["polys"], runs, q_mm, mu_mm, logn)
+    del R0, R1
+
+    # K3 at the grouped giant step: the real rotated segments of ACC1 and
+    # their gathered keys, one key per group
+    nrot = len(gi["gels"])
+    ext = ctx.decompose_ntt_b(acc1[gi["rot"]].reshape(nrot * ncols, nmod, N), nmod)
+    ext = ext.contiguous().view(nrot, ncols, nmod, nmod + 1, N)
+    del acc0, acc1
+    ig0, ig1 = cps.stacked_keys_inv(gi["uniq_gels"], nmod)
+    ks_check("ks_digit_product (grouped)", ext, ig0[gi["gsel"]][:, None],
+             ig1[gi["gsel"]][:, None], 10, 1)
+    del ext
 
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_per_mat_mult"] = per_call[k["name"]]
+        k["launches"] = launches[k["kernel"]]
+        k["launches_per_mat_mult"] = per_call[k["kernel"]]
     _say("kernel checks: " + ", ".join(
         f"{k['name']} equal={k['bit_equal']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
         f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})" for k in kernels))
@@ -331,6 +387,9 @@ def main() -> int:
     record = {
         "kernels": kernels,
         "card": smi,
+        "max_sm_clock_mhz": max_sm_mhz,
+        "sm_count": torch.cuda.get_device_properties(0).multi_processor_count,
+        "ptxas": ptxas,
         "main_path": {
             "preset": "PN14QP438", "block": [n_ind, n_snp], "columns": ncols,
             "diagonals": k_total, "nmod": nmod, "rotation_keys": len(gels),

@@ -88,10 +88,8 @@ class KSwitchKey:
 # Kernel K3: the keyswitch digit contraction
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KS_DIGIT = CudaKernel(
-    "ks_digit", "ks_digit_product", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-)
-KS_MAX_DIGITS = 24  # KMAX in csrc/ks_digit.cu
+KS_DIGIT = CudaKernel("ks_digit", "ks_digit_product", [_P] * 7 + [_I] * 6)
+KS_MAX_DIGITS = 24  # KMAX in csrc/ks_digit.cu: one template instance per digit count
 
 
 def ks_digit_product_plain(ext, key0, key1, q):
@@ -114,27 +112,41 @@ def ks_digit_product_plain(ext, key0, key1, q):
     )
 
 
-def ks_digit_product(ext, key0, key1, q, logn: int):
-    """Kernel K3 for CUDA tensors (the plain version for CPU tensors);
-    shapes as in ks_digit_product_plain, all int32 and contiguous."""
-    if ext.device.type == "cpu":
-        return ks_digit_product_plain(ext, key0, key1, q)
+def _ks_digit_shape(ext, key0, key1, q, mu, logn: int):
+    """Validate K3's inputs from their metadata alone (no device read);
+    returns (G, S, Bk, J, X, N).  Raises ValueError on what the kernel does
+    not take; the launch refuses a ring smaller than the kernel's tile."""
     G, S, J, X, N = ext.shape
     Bk = key0.shape[1]
-    if J > KS_MAX_DIGITS:
-        raise ValueError(f"ks_digit_product: {J} digits > {KS_MAX_DIGITS}")
+    if not 1 <= J <= KS_MAX_DIGITS:
+        raise ValueError(f"ks_digit_product: {J} digits; the kernel has 1..{KS_MAX_DIGITS}")
     if N != 1 << logn:
-        raise ValueError(f"ks_digit_product: N={N} != 2^{logn}")
+        raise ValueError(f"ks_digit_product: N={N} is not 2^{logn}")
     dev = ext.device
     check(ext, "ext", dev)
     check(key0, "key0", dev, (G, Bk, J, X, N))
     check(key1, "key1", dev, (G, Bk, J, X, N))
     check(q, "q", dev, (X, 1))
-    out0 = torch.empty((G, S, Bk, X, N), dtype=torch.int32, device=dev)
+    check(mu, "mu", dev, (X,), torch.int64)
+    for name, t in (("ext", ext), ("key0", key0), ("key1", key1)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ks_digit_product: {name} is not 16-byte aligned")
+    return G, S, Bk, J, X, N
+
+
+def ks_digit_product(ext, key0, key1, q, mu, logn: int):
+    """Kernel K3 for CUDA tensors (the plain version for CPU tensors);
+    shapes as in ks_digit_product_plain, all int32 and contiguous; mu [X]
+    int64 is rns.barrett_mu64 of the same rows (the kernel's Barrett
+    constant; the plain version does not need it)."""
+    if ext.device.type == "cpu":
+        return ks_digit_product_plain(ext, key0, key1, q)
+    G, S, Bk, J, X, N = _ks_digit_shape(ext, key0, key1, q, mu, logn)
+    out0 = torch.empty((G, S, Bk, X, N), dtype=torch.int32, device=ext.device)
     out1 = torch.empty_like(out0)
     if out0.numel():
         KS_DIGIT.launch(
-            dev, ptr(ext), ptr(key0), ptr(key1), ptr(out0), ptr(out1), ptr(q),
+            ext.device, ptr(ext), ptr(key0), ptr(key1), ptr(out0), ptr(out1), ptr(q), ptr(mu),
             G, S, Bk, J, X, logn,
         )
     return out0, out1
@@ -187,7 +199,8 @@ class CkksContext:
         q = self._t(rows)["q"]
         if not self.kernels:
             return ks_digit_product_plain(ext, key0, key1, q)
-        return ks_digit_product(ext, key0, key1, q, self.params.logn)
+        mu = rns.barrett_mu64(self.basis, rows, self.device)
+        return ks_digit_product(ext, key0, key1, q, mu, self.params.logn)
 
     def to_dev(self, a: np.ndarray) -> torch.Tensor:
         """uint32 residues (host) -> int32 tensor on this context's device."""

@@ -4,17 +4,19 @@ single-device path of sfgwas_tpu/gwas/matmult.py).
 
 Per block row, one hoisted keyswitch batch rotates every A row by every
 needed baby shift; the diagonal multiply-accumulate of the whole block row
-is one launch of kernel K2 (mac_dense below, source csrc/mac_dense.cu); the
+is one launch of kernel K2 (mac_dense below, source csrc/mac_dense.cu) over
+a CSR list of accumulator runs that the plan builds on the host; the
 giant-step rotations of all accumulated groups run as one grouped
 keyswitch; a combine per block column and one batched double rescale
 finish.  Diagonals are encoded once (preprocess_matrix) and stay on the
-device.
+device.  Nothing in a product reads a value back from the device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,8 +34,11 @@ from ..utils import prof
 # diagonal polys per MAC chunk are bounded by this many bytes (per A row);
 # a giant group longer than that is split over several chunks
 MM_CHUNK_BYTES = 256 * 1024 * 1024
-# kernel K2 sums raw products (< 2^52) of one accumulator run in a uint64
+# kernel K2 sums the raw products of one accumulator run in a uint64: every
+# prime is below 2^26, so a run of up to 4096 terms, each (q-1)^2 < 2^52 at
+# most, stays below 2^64
 MAC_MAX_TERMS = 4096
+_PLAIN_STEP = 64  # entries per int64 product in the plain MAC
 _ENC_STEP = 1024  # diagonals per host FFT batch
 
 
@@ -123,17 +128,23 @@ def _encode_diag_device(cps: CryptoParams, chunks, nmod: int):
     return out
 
 
+def block_shifts(S: int, r: int, c: int) -> np.ndarray:
+    """The diagonal shifts of an r x c block in S slots, ascending: the set
+    s = (i-j) mod S for i < r, j < c is exactly [0, r) u [S-c+1, S).  The
+    giant and baby of shift s are s // d and s % d, d = ceil(sqrt(S))."""
+    assert r <= S and c <= S
+    return np.concatenate(
+        [np.arange(r), np.arange(max(S - c + 1, r), S)]
+    ).astype(np.int64)
+
+
 def encode_block_diagonals_host(cps: CryptoParams, block: np.ndarray):
     """Host stage of encode_block_diagonals: diagonal scatter + FFT fold.
     Returns (giants, babies, d, host_chunks)."""
     S = cps.slots
     d = int(math.ceil(math.sqrt(S)))
     r, c = block.shape
-    assert r <= S and c <= S
-    # shift set s = (i-j) mod S for i<r, j<c is exactly [0, r) u [S-c+1, S)
-    shifts = np.concatenate(
-        [np.arange(r), np.arange(max(S - c + 1, r), S)]
-    ).astype(np.int64)
+    shifts = block_shifts(S, r, c)
     rank = np.zeros(S, np.int64)
     rank[shifts] = np.arange(len(shifts))
     i_idx = np.arange(r, dtype=np.int64)[:, None]
@@ -171,22 +182,53 @@ def preprocess_matrix(
 # Kernel K2: the dense multiply-accumulate
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-MAC_DENSE = CudaKernel("mac_dense", "mac_dense", [_P] * 10 + [_I] * 5)
+MAC_DENSE = CudaKernel("mac_dense", "mac_dense", [_P] * 11 + [_I] * 5)
 
 
-def mac_dense_plain(ACC0, ACC1, R0, R1, polys, idx, bidx, run_start, run_sg, q):
-    """Plain version of K2, in place on ACC0/ACC1 [nacc, s, nmod, N]:
-    for each run r and each chunk c of it,
-    ACC[run_sg[r]] += sum_k R[bidx[c, k]] * polys[idx[c, k]]  (mod q).
-    R*: [nb, s, nmod, N]; polys [K, nmod, N]; idx/bidx [nchunks, k_pad];
-    run_start [nruns+1] chunk offsets; run_sg [nruns]; q [nmod, 1]."""
+@dataclass
+class MacRuns:
+    """The CSR entry list of one K2 launch.  Run r owns the entries
+    [run_start[r], run_start[r+1]), each a (diagonal, baby) pair, and adds
+    into accumulator row run_sg[r]; no two runs share a row.  The device
+    tensors feed the kernel; the host copies and the longest run, known
+    when the plan is built, are all the wrapper and the plain version
+    read, so a launch needs no read-back from the device."""
+
+    entry_diag: torch.Tensor  # [E] int32: row of the launch's diagonal polys
+    entry_baby: torch.Tensor  # [E] int32: row of the block row's rotations
+    run_start: torch.Tensor  # [nruns + 1] int32 entry offsets
+    run_sg: torch.Tensor  # [nruns] int32 accumulator rows
+    run_start_host: np.ndarray
+    run_sg_host: np.ndarray
+    longest: int  # entries in the longest run
+
+    @property
+    def nruns(self) -> int:
+        return len(self.run_sg_host)
+
+    @classmethod
+    def from_host(cls, entry_diag, entry_baby, run_start, run_sg, device) -> "MacRuns":
+        """From host arrays (run_start [nruns+1] entry offsets)."""
+        host = [np.ascontiguousarray(a, np.int32)
+                for a in (entry_diag, entry_baby, run_start, run_sg)]
+        dev = [torch.from_numpy(a).to(device) for a in host]
+        return cls(*dev, run_start_host=host[2], run_sg_host=host[3],
+                   longest=int(np.diff(host[2]).max(initial=0)))
+
+
+def mac_dense_plain(ACC0, ACC1, R0, R1, polys, runs: MacRuns, q):
+    """Plain version of K2, in place on ACC0/ACC1 [nacc, s, nmod, N]: for
+    each run r, ACC[run_sg[r]] += sum_e R[entry_baby[e]] * polys[entry_diag[e]]
+    (mod q) over the run's entries.  R*: [nb, s, nmod, N]; polys
+    [K, nmod, N]; q [nmod, 1].  Walks the runs by their host copies."""
     q64 = q.long()
-    starts = run_start.tolist()
-    for r, sg in enumerate(run_sg.tolist()):
+    starts = runs.run_start_host.tolist()
+    for r, sg in enumerate(runs.run_sg_host.tolist()):
         a0 = a1 = 0
-        for c in range(starts[r], starts[r + 1]):
-            P = polys[idx[c].long()].long()[:, None]  # [k, 1, nmod, N]
-            b = bidx[c].long()
+        for e0 in range(starts[r], starts[r + 1], _PLAIN_STEP):
+            e1 = min(e0 + _PLAIN_STEP, starts[r + 1])
+            P = polys[runs.entry_diag[e0:e1].long()].long()[:, None]  # [k, 1, nmod, N]
+            b = runs.entry_baby[e0:e1].long()
             a0 = a0 + torch.remainder(R0[b].long() * P, q64).sum(0)
             a1 = a1 + torch.remainder(R1[b].long() * P, q64).sum(0)
         ACC0[sg] = add_mod(ACC0[sg], torch.remainder(a0, q64).to(torch.int32), q)
@@ -194,18 +236,15 @@ def mac_dense_plain(ACC0, ACC1, R0, R1, polys, idx, bidx, run_start, run_sg, q):
     return ACC0, ACC1
 
 
-def mac_dense(ACC0, ACC1, R0, R1, polys, idx, bidx, run_start, run_sg, q, logn: int):
-    """Kernel K2 for CUDA tensors (the plain version for CPU tensors); in
-    place on ACC0/ACC1, arguments as in mac_dense_plain, all int32 and
-    contiguous."""
-    if ACC0.device.type == "cpu":
-        return mac_dense_plain(ACC0, ACC1, R0, R1, polys, idx, bidx, run_start, run_sg, q)
+def _mac_dense_shape(ACC0, ACC1, R0, R1, polys, runs: MacRuns, q, mu, logn: int):
+    """Validate K2's inputs from their metadata and the runs' host copies
+    alone (no device read); returns (nb, S, NM).  Raises ValueError on what
+    the kernel does not take; the kernel's own limits (ring size, babies
+    that fit its shared memory) are refused by the launch."""
     dev = ACC0.device
-    nacc, S, NM, N = ACC0.shape
-    nchunks, kpad = idx.shape
-    nruns = run_sg.shape[0]
+    _, S, NM, N = ACC0.shape
     if N != 1 << logn:
-        raise ValueError(f"mac_dense: N={N} != 2^{logn}")
+        raise ValueError(f"mac_dense: N={N} is not 2^{logn}")
     check(ACC0, "ACC0", dev)
     check(ACC1, "ACC1", dev, ACC0.shape)
     check(R0, "R0", dev)
@@ -213,19 +252,34 @@ def mac_dense(ACC0, ACC1, R0, R1, polys, idx, bidx, run_start, run_sg, q, logn: 
     if R0.shape[1:] != ACC0.shape[1:]:
         raise ValueError(f"mac_dense: R {tuple(R0.shape)} vs ACC {tuple(ACC0.shape)}")
     check(polys, "polys", dev, (polys.shape[0], NM, N))
-    check(idx, "idx", dev)
-    check(bidx, "bidx", dev, (nchunks, kpad))
-    check(run_start, "run_start", dev, (nruns + 1,))
-    check(run_sg, "run_sg", dev, (nruns,))
+    E = int(runs.run_start_host[-1])
+    check(runs.entry_diag, "entry_diag", dev, (E,))
+    check(runs.entry_baby, "entry_baby", dev, (E,))
+    check(runs.run_start, "run_start", dev, (runs.nruns + 1,))
+    check(runs.run_sg, "run_sg", dev, (runs.nruns,))
     check(q, "q", dev, (NM, 1))
-    if nruns == 0:
+    check(mu, "mu", dev, (NM,), torch.int64)
+    for name, t in (("R0", R0), ("R1", R1), ("polys", polys)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"mac_dense: {name} is not 16-byte aligned")
+    if runs.longest > MAC_MAX_TERMS:
+        raise ValueError(f"mac_dense: {runs.longest} terms in a run > {MAC_MAX_TERMS}")
+    return R0.shape[0], S, NM
+
+
+def mac_dense(ACC0, ACC1, R0, R1, polys, runs: MacRuns, q, mu, logn: int):
+    """Kernel K2 for CUDA tensors (the plain version for CPU tensors); in
+    place on ACC0/ACC1, arguments as in mac_dense_plain, all int32 and
+    contiguous; mu [nmod] int64 is rns.barrett_mu64 of the same rows."""
+    if ACC0.device.type == "cpu":
+        return mac_dense_plain(ACC0, ACC1, R0, R1, polys, runs, q)
+    nb, S, NM = _mac_dense_shape(ACC0, ACC1, R0, R1, polys, runs, q, mu, logn)
+    if runs.nruns == 0 or S == 0:
         return ACC0, ACC1
-    longest = int((run_start[1:] - run_start[:-1]).max())
-    if longest * kpad > MAC_MAX_TERMS:
-        raise ValueError(f"mac_dense: {longest * kpad} terms in a run > {MAC_MAX_TERMS}")
     MAC_DENSE.launch(
-        dev, ptr(ACC0), ptr(ACC1), ptr(R0), ptr(R1), ptr(polys), ptr(idx), ptr(bidx),
-        ptr(run_start), ptr(run_sg), ptr(q), nruns, S, NM, kpad, logn,
+        ACC0.device, ptr(ACC0), ptr(ACC1), ptr(R0), ptr(R1), ptr(polys),
+        ptr(runs.entry_diag), ptr(runs.entry_baby), ptr(runs.run_start), ptr(runs.run_sg),
+        ptr(q), ptr(mu), runs.nruns, nb, S, NM, logn,
     )
     return ACC0, ACC1
 
@@ -254,7 +308,9 @@ class _MatmulPlan:
     """Static index plan for one preprocessed matrix in dense mode: global
     segment list (block-col, giant), per-block-row baby unions, and
     giant-aligned chunks (each chunk covers exactly one segment) stacked
-    into one MAC launch per block row."""
+    into one MAC launch per block row.  The chunks mirror the reference's
+    (budget split, padding to k_pad with the zero row nb_pad, the nsub
+    bound); the launches take their unpadded entries (groups())."""
 
     def __init__(self, cps: CryptoParams, cache, nmod: int, row_batch: int = 1):
         self.cache = cache
@@ -265,7 +321,8 @@ class _MatmulPlan:
         self.nbr, self.nbc = nbr, nbc
         self.n = cps.ctx.n
         self.device = cps.ctx.device
-        qmax = max(cps.params.q_primes[:nmod])
+        self.q_primes = list(cps.params.q_primes[:nmod])
+        qmax = max(self.q_primes)
         # a u32 sum of t reduced terms is exact iff t*(q-1) <= 2^32-1
         self.max_lazy = (2**32 - 1) // (qmax - 1)
         assert self.max_lazy >= 2, "primes too large for lazy u32 accumulation"
@@ -322,6 +379,7 @@ class _MatmulPlan:
                 [c["bidx"], np.full(self.k_pad - K, self.nb_pad, np.int64)]
             ).astype(np.int32)
         self._groups: Optional[list] = None
+        self._giant: Optional[dict] = None
 
     def _chunk(self, blk: DiagBlock, bj: int, k0: int, k1: int, bpos) -> dict:
         segs = {int(g) for g in blk.giants[k0:k1]}
@@ -335,9 +393,11 @@ class _MatmulPlan:
             "sg": self.seg_index[(bj, segs.pop())],
         }
 
-    def _build_group(self, cs) -> dict:
-        """One MAC launch from a chunk list: stacked index arrays, the
-        accumulator runs and the diagonal polys the chunks touch."""
+    def _build_group(self, cs, nb: int) -> dict:
+        """One MAC launch from a chunk list: the CSR entry list of its
+        accumulator runs (the chunks' unpadded (diagonal, baby) pairs,
+        consecutive chunks of one accumulator row forming one run), the
+        diagonal polys the chunks touch, and the runs' chunk offsets."""
         offs: Dict[int, int] = {}
         blks: List[DiagBlock] = []
         tot = 0
@@ -346,38 +406,65 @@ class _MatmulPlan:
                 offs[id(c["blk"])] = tot
                 tot += c["blk"].num_diags
                 blks.append(c["blk"])
-        idxm = np.zeros((len(cs), self.k_pad), np.int32)
-        bidxm = np.zeros((len(cs), self.k_pad), np.int32)
-        sgs = np.zeros(len(cs), np.int64)
-        for r, c in enumerate(cs):
-            k0, k1 = c["k0"], c["k1"]
-            idxm[r, : k1 - k0] = offs[id(c["blk"])] + np.arange(k0, k1, dtype=np.int32)
-            bidxm[r] = c["bidx"]
-            sgs[r] = c["sg"]
+        diag = [offs[id(c["blk"])] + np.arange(c["k0"], c["k1"]) for c in cs]
+        baby = [c["bidx"][: c["k1"] - c["k0"]] for c in cs]
+        sgs = np.array([c["sg"] for c in cs], np.int64)
         # runs of consecutive chunks sharing an accumulator row
         starts = [0] + [r for r in range(1, len(cs)) if sgs[r] != sgs[r - 1]]
         run_sg = sgs[starts]
         assert len(set(run_sg.tolist())) == len(run_sg), "accumulator row in two runs"
-        run_start = np.array(starts + [len(cs)], np.int32)
+        chunk_start = np.array(starts + [len(cs)], np.int64)
+        sizes = np.array([c["k1"] - c["k0"] for c in cs], np.int64)
+        run_start = np.concatenate([[0], np.cumsum(sizes)])[chunk_start]
+        entry_baby = np.concatenate(baby)
+        assert entry_baby.max() < nb, "baby index past the block row's rotations"
+        runs = MacRuns.from_host(np.concatenate(diag), entry_baby, run_start, run_sg,
+                                 self.device)
+        qmax = max(self.q_primes)
+        assert runs.longest <= MAC_MAX_TERMS and runs.longest * (qmax - 1) ** 2 < 2**64
         polys = (
             blks[0].polys if len(blks) == 1 else torch.cat([b.polys for b in blks])
         )
-        dev = self.device
-        return {
-            "polys": polys,
-            "idx": torch.from_numpy(idxm).to(dev),
-            "bidx": torch.from_numpy(bidxm).to(dev),
-            "run_start": torch.from_numpy(run_start).to(dev),
-            "run_sg": torch.from_numpy(run_sg.astype(np.int32)).to(dev),
-        }
+        return {"polys": polys, "runs": runs, "chunk_start": chunk_start}
 
     def groups(self) -> list:
         """Per block row, the list of MAC launches (one per row here)."""
         if self._groups is None:
             self._groups = [
-                [self._build_group(cs)] if cs else [] for cs in self.chunks
+                [self._build_group(cs, len(self.babies[bi]))] if cs else []
+                for bi, cs in enumerate(self.chunks)
             ]
         return self._groups
+
+    def giant_index(self, ctx) -> dict:
+        """Device index tensors of the giant step, built once per plan (a
+        host-to-device copy per product would drain the queue): the rotated
+        segments `rot` with their Galois elements `gels` (and the distinct
+        ones `uniq_gels`, `gsel` mapping each segment to its key), their
+        block columns `bj`, and the unrotated segments `zsegs` as (block
+        column, segment) tensors."""
+        if self._giant is None:
+            d, slots = self.d, ctx.params.slots
+            rot = [si for si, (bj, g) in enumerate(self.segments) if g > 0]
+            gels = [ctx.galois_for_rotation((self.segments[si][1] * d) % slots) for si in rot]
+            uniq = sorted(set(gels))
+            pos = {g: x for x, g in enumerate(uniq)}
+            zsegs = [(bj, self.seg_index[(bj, 0)]) for bj in range(self.nbc)
+                     if (bj, 0) in self.seg_index]
+            dev = self.device
+            self._giant = {
+                "rot": torch.tensor(rot, dtype=torch.long, device=dev),
+                "gels": gels,
+                "uniq_gels": uniq,
+                "gsel": torch.tensor([pos[g] for g in gels], dtype=torch.long, device=dev),
+                "bj": torch.tensor([self.segments[si][0] for si in rot], dtype=torch.long,
+                                   device=dev),
+                "zsegs": (
+                    torch.tensor([z[0] for z in zsegs], dtype=torch.long, device=dev),
+                    torch.tensor([z[1] for z in zsegs], dtype=torch.long, device=dev),
+                ) if zsegs else None,
+            }
+        return self._giant
 
 
 _plan_cache: Dict[int, _MatmulPlan] = {}
@@ -404,11 +491,9 @@ def _plan_for(cps, cache, nmod, row_batch: int = 1) -> _MatmulPlan:
 
 def baby_rotations(cps: CryptoParams, A: B.CipherMatrix, plan: _MatmulPlan, bi: int):
     """Block row bi of A rotated by each of the row's baby shifts (one
-    hoisted keyswitch batch) -> (R0, R1) [nb_pad + 1, s, nmod, N]: the
-    rows past the babies are zero, and row nb_pad is the all-zero row that
-    the chunks' padding entries index."""
+    hoisted keyswitch batch) -> (R0, R1) [len(plan.babies[bi]), s, nmod, N]."""
     ctx = cps.ctx
-    nmod, n, s = plan.nmod, ctx.n, len(A)
+    nmod, s = plan.nmod, len(A)
     babies = plan.babies[bi]
     C0s = torch.stack([A[i][bi].c0[:nmod] for i in range(s)])
     C1s = torch.stack([A[i][bi].c1[:nmod] for i in range(s)])
@@ -426,9 +511,6 @@ def baby_rotations(cps: CryptoParams, A: B.CipherMatrix, plan: _MatmulPlan, bi: 
             rows0.append(R0nz[j])
             rows1.append(R1nz[j])
             j += 1
-    zero = torch.zeros((s, nmod, n), dtype=torch.int32, device=ctx.device)
-    rows0 += [zero] * (plan.nb_pad + 1 - len(rows0))
-    rows1 += [zero] * (plan.nb_pad + 1 - len(rows1))
     return torch.stack(rows0), torch.stack(rows1)
 
 
@@ -448,16 +530,12 @@ def mat_mult_cached(
         return [[ctx.zero_ct(mm_nmod(cps)) for _ in range(nbc)] for _ in range(s)]
     nmod = some.polys.shape[1]
     q = ctx._t(range(nmod))["q"]
-    d = some.d
+    mu = rns.barrett_mu64(ctx.basis, range(nmod), ctx.device)
     n = ctx.n
     plan = _plan_for(cps, cache, nmod, row_batch=s)
     nseg_tot = len(plan.segments)
     groups = plan.groups()
-    rot_segs = [si for si, (bj, g) in enumerate(plan.segments) if g > 0]
-    gels = [
-        ctx.galois_for_rotation((plan.segments[si][1] * d) % cps.slots) for si in rot_segs
-    ]
-    uniq_gels = sorted(set(gels))
+    gi = plan.giant_index(ctx)
 
     ACC0 = torch.zeros((nseg_tot + 1, s, nmod, n), dtype=torch.int32, device=ctx.device)
     ACC1 = torch.zeros_like(ACC0)
@@ -468,37 +546,27 @@ def mat_mult_cached(
             R0, R1 = baby_rotations(cps, A, plan, bi)
         with prof.span("mm_mac"):
             for g in groups[bi]:
-                args = (ACC0, ACC1, R0, R1, g["polys"], g["idx"], g["bidx"],
-                        g["run_start"], g["run_sg"], q)
+                args = (ACC0, ACC1, R0, R1, g["polys"], g["runs"], q)
                 if ctx.kernels:
-                    mac_dense(*args, logn=ctx.params.logn)
+                    mac_dense(*args, mu=mu, logn=ctx.params.logn)
                 else:
                     mac_dense_plain(*args)
         del R0, R1
 
     in_scale = A[0][0].scale * ctx.params.scale
     with prof.span("mm_giant"):
-        if rot_segs:
-            idx = torch.tensor(rot_segs, device=ctx.device)
-            ig0, ig1 = cps.stacked_keys_inv(uniq_gels, nmod)
-            gel_pos = {g: x for x, g in enumerate(uniq_gels)}
-            gsel = torch.tensor([gel_pos[g] for g in gels], device=ctx.device)
+        if gi["gels"]:
+            ig0, ig1 = cps.stacked_keys_inv(gi["uniq_gels"], nmod)
             r0, r1 = ctx.rotate_grouped_b(
-                ACC0[idx], ACC1[idx], ctx.perms_for(gels), ig0[gsel], ig1[gsel], nmod
+                ACC0[gi["rot"]], ACC1[gi["rot"]], ctx.perms_for(gi["gels"]),
+                ig0[gi["gsel"]], ig1[gi["gsel"]], nmod,
             )
-            bj_ids = torch.tensor(
-                [plan.segments[si][0] for si in rot_segs], device=ctx.device
-            )
-            c0f, c1f = _combine_rotated(r0, r1, bj_ids, q, nbc)
+            c0f, c1f = _combine_rotated(r0, r1, gi["bj"], q, nbc)
         else:
             c0f = torch.zeros((nbc, s, nmod, n), dtype=torch.int32, device=ctx.device)
             c1f = torch.zeros_like(c0f)
-        zsegs = [
-            (bj, plan.seg_index[(bj, 0)]) for bj in range(nbc) if (bj, 0) in plan.seg_index
-        ]
-        if zsegs:
-            bjz = torch.tensor([z[0] for z in zsegs], device=ctx.device)
-            siz = torch.tensor([z[1] for z in zsegs], device=ctx.device)
+        if gi["zsegs"] is not None:
+            bjz, siz = gi["zsegs"]
             c0f[bjz] = add_mod(c0f[bjz], ACC0[siz], q)
             c1f[bjz] = add_mod(c1f[bjz], ACC1[siz], q)
     with prof.span("mm_rescale"):

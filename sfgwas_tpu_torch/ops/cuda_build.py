@@ -4,7 +4,8 @@ Each source csrc/<name>.cu exposes a plain C interface and is compiled by
 hand with nvcc for sm_90a into a shared library that ctypes loads; no
 PyTorch headers are involved, so a build takes seconds.  Libraries go to
 sfgwas_tpu_torch/_build/ (listed in .gitignore), named by a hash of the
-source and the flags, so a changed source is rebuilt at its first use.
+source, the shared headers csrc/*.cuh and the flags, so a changed source or
+header is rebuilt at its first use.
 Nothing is built or loaded when this module is imported.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,9 +45,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
@@ -81,12 +85,32 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     return secs
 
 
-def ptxas_report(name: str) -> str:
-    """ptxas -v lines of the current build of a source."""
+def ptxas_report(name: str) -> List[Dict]:
+    """Per kernel of the current build of a source, from ptxas -v: its
+    (mangled) name, registers, spill stores and loads in bytes, and static
+    shared memory in bytes."""
     p = Path(str(_target(name)) + ".log")
     if not p.exists():
-        return ""
-    return "\n".join(l for l in p.read_text().splitlines() if "ptxas" in l)
+        return []
+    out: List[Dict] = []
+    for line in p.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append({"kernel": m.group(1), "registers": None, "spill_stores": 0,
+                        "spill_loads": 0, "smem": 0})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[-1]["smem"] = int(m.group(1))
+    return out
 
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -183,6 +183,19 @@ def _sel(basis: RnsBasis, rows, device) -> Dict[str, torch.Tensor]:
     return basis._cache[key]
 
 
+def barrett_mu64(basis: RnsBasis, rows, device) -> torch.Tensor:
+    """mu = floor(2^64 / q) per row as an int64 tensor [L] on `device`
+    (the bits of a uint64; every mu is below 2^63), cached per (rows,
+    device).  The kernels K2 and K3 reduce a 64-bit sum a with it:
+    qhat = umulhi64(a, mu), r = a - qhat*q, one conditional subtract."""
+    device = torch.device(device)
+    key = ("mu64", tuple(rows), str(device))
+    if key not in basis._cache:
+        mu = [(1 << 64) // basis.primes[r] for r in rows]
+        basis._cache[key] = torch.tensor(mu, dtype=torch.int64).to(device)
+    return basis._cache[key]
+
+
 # ---------------------------------------------------------------------------
 # elementwise modular arithmetic on canonical int32 residues
 

@@ -6,6 +6,7 @@ across with sfgwas_tpu_torch.interop."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from sfgwas_tpu.crypto import basics as RB
 from sfgwas_tpu.crypto import ckks as RC
@@ -151,9 +152,10 @@ def test_ks_digit_product_plain_matches_numpy():
         ext = (rng.integers(0, 1 << 40, size=(G, S, J, X, N)) % q).astype(np.uint32)
         k0 = (rng.integers(0, 1 << 40, size=(G, Bk, J, X, N)) % q).astype(np.uint32)
         k1 = (rng.integers(0, 1 << 40, size=(G, Bk, J, X, N)) % q).astype(np.uint32)
+        mu = torch.tensor([(1 << 64) // int(v) for v in q[:, 0]], dtype=torch.int64)
         o0, o1 = PC.ks_digit_product(
             port_rns.as_i32(ext), port_rns.as_i32(k0), port_rns.as_i32(k1),
-            port_rns.as_i32(q), logn=4,
+            port_rns.as_i32(q), mu, logn=4,
         )
         e = ext.astype(object)
         for o, k in ((o0, k0), (o1, k1)):

@@ -49,31 +49,129 @@ def test_ntt_kernel_matches_plain(dev, preset, inverse):
     assert after == before + 1
 
 
+def _ks_case(dev, basis, G, S, Bk, J, seed, X=4):
+    rows = tuple(range(X - 1)) + (len(basis.primes) - 1,)
+    q = rns._sel(basis, rows, dev)["q"]
+    mu = rns.barrett_mu64(basis, rows, dev)
+    ext = _residues(basis, rows, (G * S * J, basis.n), seed, dev)
+    ext = ext.view(X, G, S, J, basis.n).permute(1, 2, 3, 0, 4).contiguous()
+    k0 = _residues(basis, rows, (G * Bk * J, basis.n), seed + 1, dev)
+    k0 = k0.view(X, G, Bk, J, basis.n).permute(1, 2, 3, 0, 4).contiguous()
+    k1 = torch.flip(k0, dims=(-1,)).contiguous()
+    return ext, k0, k1, q, mu
+
+
 def test_ks_digit_kernel_matches_plain(dev):
     basis = get_params("TEST8").basis
-    rows = (0, 1, 2, len(basis.primes) - 1)
-    q = rns._sel(basis, rows, dev)["q"]
     for G, S, Bk, J in ((1, 3, 5, 4), (4, 2, 1, 4)):
-        ext = _residues(basis, rows, (G * S * J, basis.n), 2, dev)
-        ext = ext.view(len(rows), G, S, J, basis.n).permute(1, 2, 3, 0, 4).contiguous()
-        k0 = _residues(basis, rows, (G * Bk * J, basis.n), 3, dev)
-        k0 = k0.view(len(rows), G, Bk, J, basis.n).permute(1, 2, 3, 0, 4).contiguous()
-        k1 = torch.flip(k0, dims=(-1,)).contiguous()
-        o = PC.ks_digit_product(ext, k0, k1, q, basis.logn)
+        ext, k0, k1, q, mu = _ks_case(dev, basis, G, S, Bk, J, 2)
+        o = PC.ks_digit_product(ext, k0, k1, q, mu, basis.logn)
         p = PC.ks_digit_product_plain(ext, k0, k1, q)
         torch.cuda.synchronize()
         assert torch.equal(o[0], p[0]) and torch.equal(o[1], p[1])
 
 
+@pytest.mark.parametrize("J", [1, 7, PC.KS_MAX_DIGITS])
+@pytest.mark.parametrize("G,S,Bk", [(1, 8, 1), (1, 3, 17), (3, 5, 2), (2, 19, 1)])
+def test_ks_digit_kernel_awkward_shapes(dev, J, G, S, Bk):
+    """One digit, the main path's 7 and the largest instance; one key, a
+    key count that leaves the last 16-key tile part full, several groups,
+    and more rows than one block stages at the largest J."""
+    basis = get_params("TEST10").basis
+    ext, k0, k1, q, mu = _ks_case(dev, basis, G, S, Bk, J, 10 * J + S)
+    o = PC.ks_digit_product(ext, k0, k1, q, mu, basis.logn)
+    p = PC.ks_digit_product_plain(ext, k0, k1, q)
+    torch.cuda.synchronize()
+    assert torch.equal(o[0], p[0]) and torch.equal(o[1], p[1])
+
+
 def test_ks_digit_kernel_refuses_bad_input(dev):
     basis = get_params("TEST8").basis
     q = rns._sel(basis, (0,), dev)["q"]
+    mu = rns.barrett_mu64(basis, (0,), dev)
     ext = torch.zeros((1, 1, 1, 1, basis.n), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="dtype"):
-        PC.ks_digit_product(ext, ext.long(), ext, q, basis.logn)
+        PC.ks_digit_product(ext, ext.long(), ext, q, mu, basis.logn)
+    with pytest.raises(ValueError, match="dtype"):
+        PC.ks_digit_product(ext, ext, ext, q, q, basis.logn)
     with pytest.raises(ValueError, match="digits"):
         big = torch.zeros((1, 1, PC.KS_MAX_DIGITS + 1, 1, basis.n), dtype=torch.int32, device=dev)
-        PC.ks_digit_product(big, big, big, q, basis.logn)
+        PC.ks_digit_product(big, big, big, q, mu, basis.logn)
+    # the wrapper's digit limit is the library's
+    assert cuda_build.load("ks_digit").ks_digit_max_digits() == PC.KS_MAX_DIGITS
+
+
+def _mac_case(dev, basis, S, nb, run_lengths, seed, nmod=3, fill=None):
+    """Random rotations, diagonals and a CSR list with the given run
+    lengths (runs into accumulator rows in reverse order); fill = q - 1
+    sets every residue to its largest value."""
+    rng = np.random.default_rng(seed)
+    rows = tuple(range(nmod))
+    E = sum(run_lengths)
+    q = rns._sel(basis, rows, dev)["q"]
+    qn = np.array(basis.primes[:nmod], np.int64)[:, None]
+    if fill is None:
+        R0, R1 = (_residues(basis, rows, (nb * S, basis.n), seed + i, dev)
+                  .view(nmod, nb, S, basis.n).permute(1, 2, 0, 3).contiguous() for i in (1, 2))
+        polys = _residues(basis, rows, (E, basis.n), seed + 3, dev).transpose(0, 1).contiguous()
+    else:
+        top = torch.from_numpy((qn - 1).astype(np.int32)).to(dev)  # [nmod, 1]
+        R0 = top.view(1, 1, nmod, 1).expand(nb, S, nmod, basis.n).contiguous()
+        R1 = R0.clone()
+        polys = top.view(1, nmod, 1).expand(E, nmod, basis.n).contiguous()
+    nruns = len(run_lengths)
+    starts = np.concatenate([[0], np.cumsum(run_lengths)])
+    runs = PMM.MacRuns.from_host(rng.permutation(E), rng.integers(0, nb, E), starts,
+                                 np.arange(nruns)[::-1], dev)
+    acc0 = _residues(basis, rows, ((nruns + 1) * S, basis.n), seed + 4, dev)
+    acc0 = acc0.view(nmod, nruns + 1, S, basis.n).permute(1, 2, 0, 3).contiguous()
+    return (acc0, torch.flip(acc0, dims=(-1,)).contiguous(), R0, R1, polys, runs, q,
+            rns.barrett_mu64(basis, rows, dev))
+
+
+@pytest.mark.parametrize("S,nb,run_lengths", [
+    (8, 5, [1] * 40),  # runs of length 1
+    (8, 91, [91]),  # a single run
+    (1, 12, [3, 50, 1, 17]),  # one row
+    (3, 7, [33, 2, 64, 5, 31]),  # three rows: one block holds all three
+    (16, 20, [9, 40]),  # two row groups of 8
+])
+def test_mac_dense_kernel_awkward_shapes(dev, S, nb, run_lengths):
+    basis = get_params("TEST8").basis
+    a0, a1, R0, R1, polys, runs, q, mu = _mac_case(dev, basis, S, nb, run_lengths, S + nb)
+    p0, p1 = PMM.mac_dense_plain(a0.clone(), a1.clone(), R0, R1, polys, runs, q)
+    before = PMM.MAC_DENSE.launches
+    k0, k1 = PMM.mac_dense(a0, a1, R0, R1, polys, runs, q, mu, basis.logn)
+    torch.cuda.synchronize()
+    assert PMM.MAC_DENSE.launches == before + 1
+    assert torch.equal(k0, p0) and torch.equal(k1, p1)
+
+
+def test_mac_dense_kernel_longest_legal_run(dev):
+    """One run of MAC_MAX_TERMS entries, every residue q - 1: the largest
+    64-bit sum the wrapper lets through, reduced exactly; one entry more
+    is refused on the host."""
+    basis = get_params("TEST8").basis
+    a0, a1, R0, R1, polys, runs, q, mu = _mac_case(
+        dev, basis, 2, 4, [PMM.MAC_MAX_TERMS], 7, fill=True)
+    p0, p1 = PMM.mac_dense_plain(a0.clone(), a1.clone(), R0, R1, polys, runs, q)
+    k0, k1 = PMM.mac_dense(a0, a1, R0, R1, polys, runs, q, mu, basis.logn)
+    torch.cuda.synchronize()
+    assert torch.equal(k0, p0) and torch.equal(k1, p1)
+    runs.longest += 1
+    with pytest.raises(ValueError, match="terms in a run"):
+        PMM.mac_dense(a0, a1, R0, R1, polys, runs, q, mu, basis.logn)
+
+
+def test_mac_dense_kernel_refuses_babies_past_shared_memory(dev):
+    """1000 babies: one row of their tiles does not fit in shared memory, so
+    the kernel's dispatcher refuses the launch and nothing is counted."""
+    basis = get_params("TEST8").basis
+    a0, a1, R0, R1, polys, runs, q, mu = _mac_case(dev, basis, 1, 1000, [4], 3)
+    before = PMM.MAC_DENSE.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        PMM.mac_dense(a0, a1, R0, R1, polys, runs, q, mu, basis.logn)
+    assert PMM.MAC_DENSE.launches == before
 
 
 def test_mat_mult_cached_kernels_match_plain_path(dev):

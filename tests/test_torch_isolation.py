@@ -77,18 +77,18 @@ def test_wrappers_take_plain_path_on_cpu():
     assert torch.equal(cuda_ntt.ntt_b_kernel(y, basis, rows, True), x)
 
     q = rns._sel(basis, rows, "cpu")["q"]
+    mu = rns.barrett_mu64(basis, rows, "cpu")
     ext = x.permute(1, 0, 2).reshape(1, 3, 1, 2, basis.n)  # [G, S, J, X, N]
     key = ext[:, :2].contiguous()  # [G, Bk=2, J, X, N]
-    o0, o1 = PC.ks_digit_product(ext, key, key, q, basis.logn)
+    o0, o1 = PC.ks_digit_product(ext, key, key, q, mu, basis.logn)
     p0, p1 = PC.ks_digit_product_plain(ext, key, key, q)
     assert torch.equal(o0, p0) and torch.equal(o1, p1)
 
     acc = torch.zeros((2, 1, 2, basis.n), dtype=torch.int32)
-    R = torch.stack([x[:, 0], torch.zeros_like(x[:, 0])])[:, None]  # [2, 1, 2, N]
-    args = (R, R, x.transpose(0, 1).contiguous(),
-            torch.tensor([[0, 1]], dtype=torch.int32), torch.tensor([[0, 1]], dtype=torch.int32),
-            torch.tensor([0, 1], dtype=torch.int32), torch.tensor([1], dtype=torch.int32), q)
-    a0, a1 = PMM.mac_dense(acc.clone(), acc.clone(), *args, logn=basis.logn)
+    R = x[:, 0][None, None]  # [1, 1, 2, N]: one baby
+    runs = PMM.MacRuns.from_host([0], [0], [0, 1], [1], "cpu")
+    args = (R, R, x.transpose(0, 1).contiguous(), runs, q)
+    a0, a1 = PMM.mac_dense(acc.clone(), acc.clone(), *args, mu=mu, logn=basis.logn)
     b0, b1 = PMM.mac_dense_plain(acc.clone(), acc.clone(), *args)
     assert torch.equal(a0, b0) and torch.equal(a1, b1)
     assert a0[1].any() and not a0[0].any()

@@ -140,9 +140,11 @@ def test_plan_bounds():
     assert 1 <= plan.nsub <= plan.max_lazy
     assert plan.k_pad % plan.nsub == 0
     (g,) = plan.groups()[0]
-    runs = g["run_start"].numpy()
-    assert (np.diff(runs) * plan.k_pad).max() <= PMM.MAC_MAX_TERMS
-    assert len(set(g["run_sg"].tolist())) == len(g["run_sg"])
+    runs = g["runs"]
+    assert runs.longest == np.diff(runs.run_start_host).max() <= PMM.MAC_MAX_TERMS
+    assert runs.longest * (max(plan.q_primes) - 1) ** 2 < 2**64
+    assert len(set(runs.run_sg_host.tolist())) == runs.nruns
+    assert np.array_equal(runs.run_start.numpy(), runs.run_start_host)
 
 
 def test_mat_mult_cached_split_chunks(setup, monkeypatch):
@@ -154,7 +156,7 @@ def test_mat_mult_cached_split_chunks(setup, monkeypatch):
     monkeypatch.setattr(PMM, "MM_CHUNK_BYTES", 3 * nmod * pcps.ctx.n * 4 * s)
     cache = PMM.preprocess_matrix(pcps, setup["X"], nmod)
     plan = PMM._plan_for(pcps, cache, nmod, row_batch=s)
-    assert max(np.diff(g["run_start"].numpy()).max() for row in plan.groups() for g in row) > 1
+    assert max(np.diff(g["chunk_start"]).max() for row in plan.groups() for g in row) > 1
     pout = PMM.mat_mult_cached(pcps, setup["pA"], cache)
     for prow, rrow in zip(pout, setup["rout"]):
         for pct, rct in zip(prow, rrow):
