@@ -2,12 +2,14 @@
 """Run the PyTorch/CUDA port (sfgwas_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --k1-only DIR --k1-shapes FILE
 
 Phases (any failed check raises; the exit code is then nonzero):
  1. print the card's name and power limit (nvidia-smi);
  2. build the CUDA kernels from sfgwas_tpu_torch/csrc with nvcc (sm_90a),
     one nvcc per source, all started together, and print each kernel's
-    registers and spills from ptxas (a spill in K2 or K3 fails the run);
+    registers, spills and stack frame from ptxas (a spill in any kernel, or
+    a stack frame in K1, fails the run);
  3. the main path at PN14QP438, with every kernel launch count set to 0
     first: local keygen with rotation keys for exactly the shifts the plan
     needs, the diagonal encode of a 1000 x 4546 int8 genotype block in
@@ -22,20 +24,29 @@ Phases (any failed check raises; the exit code is then nonzero):
     the card: the output ciphertexts must be bit-identical;
  5. each kernel against its plain version on the main path's own inputs
     (bit equality), with both timed by CUDA events, at every shape the
-    main path launches it with: K1 at the hoisted ModUp's batch and at the
-    grouped ModUp's forward batch, K3 at the hoisted and the grouped
-    shapes, K2 at the block row;
+    main path launches it with: K1 at every (direction, prime rows, shape)
+    that one mat_mult_cached call launches it with, as recorded at its
+    wrapper, each with its launches per call, and K1's total over the call
+    (launches x ms) beside the profiler's device time for K1; K3 at the
+    hoisted and the grouped shapes, K2 at the block row;
  6. one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits nonzero and prints no result.
-Writes the record to chiprun_out/chip_smoke.json and the profiler's table
-to chiprun_out/mm_profile.txt.
+Writes the record to chiprun_out/chip_smoke.json, K1's shapes to
+chiprun_out/k1_shapes.json and the profiler's table to
+chiprun_out/mm_profile.txt.
+
+--k1-only DIR --k1-shapes FILE times only K1, from the sfgwas_tpu_torch
+package under DIR (for example another commit's tree), at the shapes of a
+k1_shapes.json, each against its plain version, and prints one JSON line:
+two trees are compared by running both in one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -116,20 +127,110 @@ def _profile(torch, fn, path: str) -> dict:
         "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "device_sum_ms": sum(by_name.values()) / 1e3, "idle_share": 1 - busy / window,
         "kernels": len(dev), "top_ms": [[k[:80], v / 1e3] for k, v in top[:15]],
+        "k1_ms": sum(v for k, v in by_name.items() if "ntt_" in k) / 1e3,
         "host_readbacks": readbacks,
     }
+
+
+def _check(torch, kernels, name, kernel, source, replaces, shape, run, run_plain, reps, preps,
+           nbytes, ops, timed=None):
+    """Bit equality of run() and run_plain() (lists of tensors), then both
+    timed; `timed` = (kernel, plain) callables to time instead.  Appends the
+    kernel's record to `kernels`."""
+    got, want = run(), run_plain()
+    torch.cuda.synchronize()
+    eq = all(_same(torch, a, b) for a, b in zip(got, want))
+    err = 0 if eq else max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    del got, want
+    ms = _time_ms(torch, (timed or (run, run_plain))[0], reps)
+    pms = _time_ms(torch, (timed or (run, run_plain))[1], preps)
+    bms, by = _bound_ms(nbytes, ops)
+    kernels.append(dict(
+        name=name, kernel=kernel, route="cuda", source=source, replaces=replaces,
+        shape=shape, bit_equal=eq, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+        bound_by=by, library_ms=None,
+    ))
+    torch.cuda.empty_cache()
+
+
+def _k1_rows(torch, cuda_ntt, rns, basis, shapes, dev, kernels):
+    """K1 against its plain version at each [inverse, rows, shape, launches
+    per call] of `shapes`, on random residues of the rows' primes; returns
+    K1's total over one call, sum of launches x ms."""
+    total = 0.0
+    for inverse, rows, shape, per_call in shapes:
+        rows = tuple(rows)
+        L, Bn, N = shape
+        qcol = torch.tensor([basis.primes[r] for r in rows], device=dev)[:, None, None]
+        x = torch.remainder(
+            torch.randint(0, 1 << 30, (L, Bn, N), device=dev, dtype=torch.int64), qcol
+        ).to(torch.int32)
+        del qcol
+        size = L * Bn * N
+        sym = "ntt_inv" if inverse else "ntt_fwd"
+        stages = basis.logn * (N // 2) + (N if inverse else 0)  # Shoup multiplies per poly
+        _check(
+            torch, kernels, f"{sym} {list(shape)}", sym, "sfgwas_tpu_torch/csrc/ntt.cu",
+            f"sfgwas_tpu/ops/pallas_ntt.py:{114 if inverse else 90}", list(shape),
+            lambda: [cuda_ntt.ntt_b_kernel(x, basis, rows, inverse)],
+            lambda: [rns._ntt_b_butterfly(x, basis, rows, inverse)],
+            max(5, min(200, int(4e8 // size))), 1 if size > 2e7 else 3,
+            2 * size * 4 + 2 * L * N * 4, 3 * L * Bn * stages,
+        )
+        kernels[-1]["launches_per_mat_mult"] = per_call
+        kernels[-1]["rows"] = list(rows)
+        total += per_call * kernels[-1]["ms"]
+        del x
+    return total
+
+
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def k1_only(torch, root: str, shapes_path: str) -> int:
+    """Time K1 of the package under `root` at the shapes in `shapes_path`."""
+    sys.path.insert(0, os.path.abspath(root))
+    from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.ops import cuda_build, cuda_ntt, rns
+
+    smi = _smi()
+    _say(smi)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cuda_build.build(["ntt"])
+    with open(shapes_path) as f:
+        rec = json.load(f)
+    kernels: list = []
+    total = _k1_rows(torch, cuda_ntt, rns, get_params(rec["preset"]).basis, rec["shapes"], dev,
+                     kernels)
+    bad = [k["name"] for k in kernels if not k["bit_equal"]]
+    _say(json.dumps({"k1_tree": os.path.abspath(root), "card": smi, "k1_total_ms": total,
+                     "kernels": kernels}))
+    if bad:
+        raise AssertionError(f"K1 differs from its plain version: {bad}")
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k1-only", metavar="DIR", help="time only K1 of the package under DIR")
+    ap.add_argument("--k1-shapes", metavar="FILE", help="K1's shapes (a k1_shapes.json)")
     args = ap.parse_args()
+    if bool(args.k1_only) != bool(args.k1_shapes):
+        ap.error("--k1-only and --k1-shapes go together")
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.k1_only:
+        return k1_only(torch, args.k1_only, args.k1_shapes)
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "chiprun_out")
     sys.path.insert(0, root)
@@ -142,10 +243,7 @@ def main() -> int:
     from sfgwas_tpu_torch.utils import prof
 
     # ---- 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     _say(smi)
     max_sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -163,9 +261,12 @@ def main() -> int:
     for name, rep in ptxas.items():
         for k in rep:
             _say(f"ptxas {name}: {k['kernel'][:60]} {k['registers']} registers, "
-                 f"spills {k['spill_stores']}/{k['spill_loads']} B, smem {k['smem']} B")
-    spilled = [k["kernel"] for n in ("mac_dense", "ks_digit") for k in ptxas[n]
-               if k["spill_stores"] or k["spill_loads"]]
+                 f"spills {k['spill_stores']}/{k['spill_loads']} B, stack {k['stack']} B, "
+                 f"smem {k['smem']} B")
+    # K1 holds its 32 coefficients in registers: a stack frame means an
+    # array went to local memory
+    spilled = [k["kernel"] for n in cuda_build.SOURCES for k in ptxas[n]
+               if k["spill_stores"] or k["spill_loads"] or (n == "ntt" and k["stack"])]
     if spilled or not all(ptxas[n] for n in cuda_build.SOURCES):
         raise AssertionError(f"ptxas: spills in {spilled} or no report")
 
@@ -230,6 +331,28 @@ def main() -> int:
     torch.cuda.synchronize()
     per_call = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
     _say(f"launches: main path {json.dumps(launches)}; one mat_mult_cached {json.dumps(per_call)}")
+    # K1's (direction, prime rows, shape) in one call, recorded at its wrapper
+    k1_calls: collections.Counter = collections.Counter()
+    k1_launch = cuda_ntt.ntt_b_kernel
+
+    def k1_recording(x, basis, rows, inverse=False):
+        k1_calls[(bool(inverse), tuple(rows), tuple(x.shape))] += 1
+        return k1_launch(x, basis, rows, inverse)
+
+    cuda_ntt.ntt_b_kernel = k1_recording
+    try:
+        MM.mat_mult_cached(cps, A, cache)
+        torch.cuda.synchronize()
+    finally:
+        cuda_ntt.ntt_b_kernel = k1_launch
+    k1_shapes = [[inv, list(rows), list(shape), n] for (inv, rows, shape), n in
+                 sorted(k1_calls.items(), key=lambda kv: kv[0][0])]
+    for sym, inv in (("ntt_fwd", False), ("ntt_inv", True)):
+        if sum(n for i, _, _, n in k1_shapes if i == inv) != per_call[sym]:
+            raise AssertionError(f"K1 shapes recorded {k1_shapes} miss launches of {sym}")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "k1_shapes.json"), "w") as f:
+        json.dump({"preset": "PN14QP438", "shapes": k1_shapes}, f)
     # the stages of one call, each ended by a device synchronize
     prof.ENABLED, prof.SYNC = True, torch.cuda.synchronize
     prof.reset()
@@ -267,49 +390,15 @@ def main() -> int:
     N = ctx.n
     logn = ctx.params.logn
 
-    def check(name, kernel, route_src, replaces, shape, run, run_plain, reps, preps,
-              nbytes, ops, timed=None):
-        """Bit equality of run() and run_plain() (lists of tensors), then
-        both timed; `timed` = (kernel, plain) callables to time instead."""
-        got, want = run(), run_plain()
-        torch.cuda.synchronize()
-        eq = all(_same(torch, a, b) for a, b in zip(got, want))
-        err = 0 if eq else max(float((a.long() - b.long()).abs().max())
-                               for a, b in zip(got, want))
-        del got, want
-        ms = _time_ms(torch, (timed or (run, run_plain))[0], reps)
-        pms = _time_ms(torch, (timed or (run, run_plain))[1], preps)
-        bms, by = _bound_ms(nbytes, ops)
-        kernels.append(dict(
-            name=name, kernel=kernel, route="cuda", source=route_src, replaces=replaces,
-            shape=shape, bit_equal=eq, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-            bound_by=by, library_ms=None,
-        ))
-        torch.cuda.empty_cache()
+    def check(*a, **kw):
+        _check(torch, kernels, *a, **kw)
 
-    # K1 at the hoisted ModUp's batched NTT [nmod+1, nmod*s, N] and at the
-    # grouped ModUp's forward NTT [nmod+1, nmod*s*61, N]
+    # K1 at every shape of one call
+    k1_total = _k1_rows(torch, cuda_ntt, rns, params.basis, k1_shapes, dev, kernels)
+    _say(f"K1 over one mat_mult_cached: {k1_total:.4f} ms (sum of launches x ms), "
+         f"profiler {profiled['k1_ms']:.4f} ms")
     plan = MM._plan_for(cps, cache, nmod, row_batch=ncols)
     gi = plan.giant_index(ctx)
-    L = len(ext_rows)
-    qcol = torch.tensor([params.basis.primes[r] for r in ext_rows], device=dev)[:, None, None]
-    shapes = [("ntt_fwd", False, nmod * ncols, 90), ("ntt_inv", True, nmod * ncols, 114),
-              ("ntt_fwd", False, nmod * ncols * len(gi["gels"]), 90)]
-    for sym, inverse, Bn, line in shapes:
-        x = torch.remainder(
-            torch.randint(0, 1 << 30, (L, Bn, N), device=dev, dtype=torch.int64), qcol
-        ).to(torch.int32)
-        grouped = Bn > nmod * ncols
-        stages_ = logn * (N // 2) + (N if inverse else 0)  # Shoup multiplies per poly
-        check(
-            sym + (" (grouped ModUp)" if grouped else ""), sym, "sfgwas_tpu_torch/csrc/ntt.cu",
-            f"sfgwas_tpu/ops/pallas_ntt.py:{line}", [L, Bn, N],
-            lambda: [cuda_ntt.ntt_b_kernel(x, params.basis, ext_rows, inverse)],
-            lambda: [rns._ntt_b_butterfly(x, params.basis, ext_rows, inverse)],
-            5 if grouped else 20, 1 if grouped else 3,
-            2 * L * Bn * N * 4 + 2 * L * N * 4, 3 * L * Bn * stages_,
-        )
-        del x
 
     # K3 at the hoisted rotations of the real A against the real baby keys
     babies = [b for b in plan.babies[0] if b % params.slots != 0]
@@ -376,7 +465,7 @@ def main() -> int:
 
     for k in kernels:
         k["launches"] = launches[k["kernel"]]
-        k["launches_per_mat_mult"] = per_call[k["kernel"]]
+        k.setdefault("launches_per_mat_mult", per_call[k["kernel"]])
     _say("kernel checks: " + ", ".join(
         f"{k['name']} equal={k['bit_equal']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
         f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})" for k in kernels))
@@ -398,6 +487,7 @@ def main() -> int:
             "kernel_vs_plain_ciphertexts_equal": same,
         },
         "profile": profiled,
+        "k1_total_ms": k1_total,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

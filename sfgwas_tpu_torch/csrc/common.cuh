@@ -1,5 +1,5 @@
-// Device helpers shared by the kernels K2 (mac_dense.cu) and K3
-// (ks_digit.cu).  Each source is built into a library of its own, so
+// Device helpers shared by the kernels K1 (ntt.cu), K2 (mac_dense.cu) and
+// K3 (ks_digit.cu).  Each source is built into a library of its own, so
 // everything here has internal linkage.
 
 #pragma once

@@ -87,8 +87,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 def ptxas_report(name: str) -> List[Dict]:
     """Per kernel of the current build of a source, from ptxas -v: its
-    (mangled) name, registers, spill stores and loads in bytes, and static
-    shared memory in bytes."""
+    (mangled) name, registers, stack frame, spill stores and loads in bytes,
+    and static shared memory in bytes."""
     p = Path(str(_target(name)) + ".log")
     if not p.exists():
         return []
@@ -96,11 +96,14 @@ def ptxas_report(name: str) -> List[Dict]:
     for line in p.read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            out.append({"kernel": m.group(1), "registers": None, "spill_stores": 0,
+            out.append({"kernel": m.group(1), "registers": None, "stack": 0, "spill_stores": 0,
                         "spill_loads": 0, "smem": 0})
             continue
         if not out:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[-1]["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             out[-1]["spill_stores"], out[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain torch versions on the card,
-at small shapes (TEST8 / TEST10).  Every test here needs an NVIDIA card and
+at small shapes (TEST8 / TEST10; K1 at every preset's ring size and at the
+PN14 product's largest launch).  Every test here needs an NVIDIA card and
 skips without one.  Run on a machine with the card and the CUDA toolkit:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -13,7 +14,7 @@ import torch
 
 from sfgwas_tpu_torch.crypto import basics as B
 from sfgwas_tpu_torch.crypto import ckks as PC
-from sfgwas_tpu_torch.crypto.params import get_params
+from sfgwas_tpu_torch.crypto.params import PRESETS, get_params, prime_chain
 from sfgwas_tpu_torch.gwas import matmult as PMM
 from sfgwas_tpu_torch.mpc.mhe import CryptoParams
 from sfgwas_tpu_torch.ops import cuda_build, cuda_ntt, rns
@@ -35,18 +36,69 @@ def _residues(basis, rows, shape, seed, dev):
     return rns.as_i32(x.astype(np.uint32)).to(dev)
 
 
-@pytest.mark.parametrize("preset", ["TEST8", "TEST10"])
+# one preset per ring size the port builds (logn 8, 10, 12, 13, 14, 15)
+NTT_PRESETS = ["TEST8", "TEST10", "PN12QP109", "PN13QP218", "PN14QP438", "PN15QP880"]
+# polys per block of ntt.cu: 256 threads a block, 32 coefficients a thread
+NTT_BLOCK_POLYS = {8: 32, 10: 8, 12: 2, 13: 1, 14: 1, 15: 1}
+
+
+def _ntt_basis(preset):
+    """Three primes of the preset's chain (building all its tables is slow
+    at N = 2^15)."""
+    spec = PRESETS[preset]
+    return rns.RnsBasis(prime_chain(spec)[0][:3], spec.logn)
+
+
+@pytest.mark.parametrize("case", ["random", "one_poly", "prime_polys", "block_plus_one",
+                                  "one_row", "zero", "top"])
 @pytest.mark.parametrize("inverse", [False, True])
-def test_ntt_kernel_matches_plain(dev, preset, inverse):
-    basis = get_params(preset).basis
-    rows = (0, 2, len(basis.primes) - 1)
-    x = _residues(basis, rows, (5, basis.n), 1, dev)
+@pytest.mark.parametrize("preset", NTT_PRESETS)
+def test_ntt_kernel_matches_plain(dev, preset, inverse, case):
+    """Random residues of 3 rows x 5 polys; B = 1; a prime batch; one poly
+    more than a block takes; one row; every input 0; every input q - 1."""
+    basis = _ntt_basis(preset)
+    rows = (2,) if case == "one_row" else (0, 1, 2)
+    Bn = {"one_poly": 1, "prime_polys": 13,
+          "block_plus_one": NTT_BLOCK_POLYS[basis.logn] + 1}.get(case, 5)
+    x = _residues(basis, rows, (Bn, basis.n), 1, dev)
+    if case in ("zero", "top"):
+        q = rns._sel(basis, rows, dev)["q"].view(len(rows), 1, 1)
+        x = torch.zeros_like(x) + (q - 1 if case == "top" else 0)
     before = cuda_ntt.NTT_INV.launches if inverse else cuda_ntt.NTT_FWD.launches
     y = cuda_ntt.ntt_b_kernel(x, basis, rows, inverse)
     torch.cuda.synchronize()
     assert torch.equal(y, rns._ntt_b_butterfly(x, basis, rows, inverse))
     after = cuda_ntt.NTT_INV.launches if inverse else cuda_ntt.NTT_FWD.launches
     assert after == before + 1
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_kernel_at_the_grouped_modup_shape(dev, inverse):
+    """The PN14 product's largest launch, [8, 3416, 2^14] over the
+    ModUp's rows (the 7 active primes and the special prime)."""
+    params = get_params("PN14QP438")
+    rows = tuple(range(7)) + (params.sp_row,)
+    x = _residues(params.basis, rows, (3416, params.n), 3, dev)
+    y = cuda_ntt.ntt_b_kernel(x, params.basis, rows, inverse)
+    torch.cuda.synchronize()
+    assert torch.equal(y, rns._ntt_b_butterfly(x, params.basis, rows, inverse))
+
+
+def test_ntt_kernel_refuses_bad_input(dev):
+    """A wrong ring size or row count raises on the host, a ring size with
+    no kernel instance is refused by the launcher; nothing falls back to the
+    plain version and nothing is counted."""
+    basis = _ntt_basis("TEST10")
+    x = _residues(basis, (0, 1), (2, basis.n), 4, dev)
+    before = cuda_ntt.NTT_FWD.launches, cuda_ntt.NTT_INV.launches
+    with pytest.raises(ValueError, match="rows of N"):
+        cuda_ntt.ntt_b_kernel(x, basis, (0, 1, 2))
+    with pytest.raises(ValueError, match="rows of N"):
+        cuda_ntt.ntt_b_kernel(x[..., : basis.n // 2].contiguous(), basis, (0, 1), True)
+    small = rns.RnsBasis(rns.gen_primes(2, 7), 7)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cuda_ntt.ntt_b_kernel(_residues(small, (0, 1), (2, small.n), 5, dev), small, (0, 1))
+    assert (cuda_ntt.NTT_FWD.launches, cuda_ntt.NTT_INV.launches) == before
 
 
 def _ks_case(dev, basis, G, S, Bk, J, seed, X=4):
