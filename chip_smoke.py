@@ -12,7 +12,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     a stack frame in K1, fails the run);
  3. the main path at PN14QP438, with every kernel launch count set to 0
     first: local keygen with rotation keys for exactly the shifts the plan
-    needs, the diagonal encode of a 1000 x 4546 int8 genotype block in
+    needs (K4's launches recorded at its wrapper), the diagonal encode of a 1000 x 4546 int8 genotype block in
     {0,1,2}, 8 encrypted columns of N(0,1) values, mat_mult_cached (one
     warm-up call, 3 timed calls), decrypt and decode against Q^T G in numpy
     (abs err < 1e-2); the counts are read right after.  Then one more call
@@ -27,15 +27,33 @@ Phases (any failed check raises; the exit code is then nonzero):
     main path launches it with: K1 at every (direction, prime rows, shape)
     that one mat_mult_cached call launches it with, as recorded at its
     wrapper, each with its launches per call, and K1's total over the call
-    (launches x ms) beside the profiler's device time for K1; K3 at the
-    hoisted and the grouped shapes, K2 at the block row;
- 6. one JSON line of kernels, then the final line
+    (launches x ms) beside the profiler's device time for K1; K4 at every
+    draw of the rotation keygen; K3 at the hoisted and the grouped shapes,
+    K2 at the block row;
+ 6. the MHE collective layer at PN14QP438, with every launch count set to
+    0 first: three parties (dealer 0, data parties 1 and 2, hub 1) as
+    threads on the card run collective_init with the default shift set
+    (303 rotation keys, the public and relinearisation keys; set-up
+    seconds split into the three), each data party encrypts 8 vectors of
+    8192 N(0,1) values under the collective key, the 8 are aggregated and
+    dropped to nmod 3, then collective_bootstrap_many refreshes them to the
+    matmult band (the scale-reset path) and to the top, and
+    collective_decrypt_many decodes both within 1e-3 of the numpy sum at
+    each data party (ms per bootstrap and per decrypt of 8: mean of 3 after
+    a warm-up); the counts are read right after.  One band bootstrap is
+    traced with torch.profiler over all threads (the idle share; a host
+    read-back fails the run).  K1 (at every direction, rows and shape), K4,
+    K5 (bs_mask, bs_combine) and K6 are held bit for bit against their
+    plain versions at every shape the phase launches them with, recorded at
+    their wrappers (K4-K6 on the phase's own inputs, K1 on random residues
+    of the rows' primes), and timed;
+ 7. one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits nonzero and prints no result.
 Writes the record to chiprun_out/chip_smoke.json, K1's shapes to
-chiprun_out/k1_shapes.json and the profiler's table to
-chiprun_out/mm_profile.txt.
+chiprun_out/k1_shapes.json and the profiler's tables to
+chiprun_out/mm_profile.txt and chiprun_out/bs_profile.txt.
 
 --k1-only DIR --k1-shapes FILE times only K1, from the sfgwas_tpu_torch
 package under DIR (for example another commit's tree), at the shapes of a
@@ -51,11 +69,22 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# integer instructions of one Threefry-2x32 word as jax.random.bits draws it:
+# 20 rounds of add, rotate and xor, five key injections of two adds (the
+# second word's addend, a key word plus the injection's index, is the same
+# for every thread of a launch), the two initial key adds and the final xor
+# of the two outputs
+THREEFRY_OPS = 20 * 3 + 5 * 2 + 2 + 1
+BARRETT_OPS = 6  # a 64-bit Barrett reduction: umulhi, multiply, subtract, compare, select
+# the kernels of each path: a path that launches one of its kernels no time fails
+MM_PATH = ("ntt_fwd", "ntt_inv", "mac_dense", "ks_digit_product", "uniform_mod")
+MHE_PATH = ("ntt_fwd", "ntt_inv", "uniform_mod", "bs_mask", "bs_combine", "crt_lift")
 # integer operations per second: the card's 67 TFLOP/s float32 rate outside
 # the tensor cores (NVIDIA data sheet), the only non-tensor rate published;
 # a multiply-add counts as two operations, as a fused multiply-add does in
@@ -92,14 +121,20 @@ def _same(torch, a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
-def _profile(torch, fn, path: str) -> dict:
+def _profile(torch, fn, path: str, all_threads: bool = False) -> dict:
     """One call of fn under torch.profiler: device time by kernel name, the
-    device's busy share of the traced window, and the full table in `path`.
+    device's busy share of the traced window, and the full table in `path`;
+    all_threads traces the host operations of every thread (party threads).
     Raises when the trace holds no device kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    kw = {}
+    if all_threads:
+        from torch._C._profiler import _ExperimentalConfig
+
+        kw["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
         fn()
         torch.cuda.synchronize()
     events = list(prof.events())
@@ -120,6 +155,7 @@ def _profile(torch, fn, path: str) -> dict:
     busy += cur_e - cur_s
     window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     readbacks = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
+    host_threads = len({e.thread for e in events if e.device_type != torch.autograd.DeviceType.CUDA})
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -128,7 +164,7 @@ def _profile(torch, fn, path: str) -> dict:
         "device_sum_ms": sum(by_name.values()) / 1e3, "idle_share": 1 - busy / window,
         "kernels": len(dev), "top_ms": [[k[:80], v / 1e3] for k, v in top[:15]],
         "k1_ms": sum(v for k, v in by_name.items() if "ntt_" in k) / 1e3,
-        "host_readbacks": readbacks,
+        "host_readbacks": readbacks, "host_threads": host_threads,
     }
 
 
@@ -153,10 +189,11 @@ def _check(torch, kernels, name, kernel, source, replaces, shape, run, run_plain
     torch.cuda.empty_cache()
 
 
-def _k1_rows(torch, cuda_ntt, rns, basis, shapes, dev, kernels):
-    """K1 against its plain version at each [inverse, rows, shape, launches
-    per call] of `shapes`, on random residues of the rows' primes; returns
-    K1's total over one call, sum of launches x ms."""
+def _k1_rows(torch, cuda_ntt, rns, basis, shapes, dev, kernels, per="launches_per_mat_mult"):
+    """K1 against its plain version at each [inverse, rows, shape, launches]
+    of `shapes` (launches stored under `per`), on random residues of the
+    rows' primes; returns K1's total over those launches, sum of launches x
+    ms."""
     total = 0.0
     for inverse, rows, shape, per_call in shapes:
         rows = tuple(rows)
@@ -177,11 +214,67 @@ def _k1_rows(torch, cuda_ntt, rns, basis, shapes, dev, kernels):
             max(5, min(200, int(4e8 // size))), 1 if size > 2e7 else 3,
             2 * size * 4 + 2 * L * N * 4, 3 * L * Bn * stages,
         )
-        kernels[-1]["launches_per_mat_mult"] = per_call
+        kernels[-1][per] = per_call
         kernels[-1]["rows"] = list(rows)
         total += per_call * kernels[-1]["ms"]
         del x
     return total
+
+
+class _Recorder:
+    """Wraps kernel wrappers that their callers look up in the module at
+    call time: keeps the arguments of the first launch at each key and
+    counts launches per key, under a lock (the parties launch from their
+    threads).  restore() puts the real wrappers back."""
+
+    def __init__(self):
+        self.args: dict = {}
+        self.counts: collections.Counter = collections.Counter()
+        self.real: dict = {}
+        self._undo: list = []
+        self._lock = threading.Lock()
+
+    def wrap(self, module, attr: str, name: str, key_of):
+        real = getattr(module, attr)
+        self.real[name], self.args[name] = real, {}
+
+        def wrapped(*a):
+            k = key_of(*a)
+            with self._lock:
+                self.args[name].setdefault(k, a)
+                self.counts[(name, k)] += 1
+            return real(*a)
+
+        setattr(module, attr, wrapped)
+        self._undo.append((module, attr, real))
+
+    def restore(self):
+        for module, attr, real in reversed(self._undo):
+            setattr(module, attr, real)
+        self._undo.clear()
+
+    def k1_shapes(self) -> list:
+        """[inverse, rows, shape, launches] of every K1 key recorded."""
+        return sorted([k[0], list(k[1]), list(k[2]), n]
+                      for (name, k), n in self.counts.items() if name == "k1")
+
+
+def _k1_key(x, basis, rows, inverse=False):
+    return bool(inverse), tuple(rows), tuple(x.shape)
+
+
+def _k4_rows(torch, C, rec, N, kernels):
+    """K4 against its plain version at every (batch, rows) that `rec`
+    recorded, on the recorded arguments, each with its launches."""
+    for key, (q, mu, sd, idx, b, logn) in sorted(rec.args["uniform_mod"].items()):
+        n_out = b * q.shape[0] * N
+        _check(torch, kernels, f"uniform_mod {[b, q.shape[0], N]}", "uniform_mod",
+               "sfgwas_tpu_torch/csrc/crp.cu", "sfgwas_tpu/crypto/ckks.py:1251",
+               [b, q.shape[0], N], lambda: [rec.real["uniform_mod"](q, mu, sd, idx, b, logn)],
+               lambda: [C.uniform_mod_plain(q, sd, idx, b, N)],
+               max(5, min(100, int(2e8 // (4 * n_out)))), 1,
+               4 * n_out, n_out * (2 * THREEFRY_OPS + BARRETT_OPS))
+        kernels[-1]["launches_at_shape"] = rec.counts[("uniform_mod", key)]
 
 
 def _smi():
@@ -213,6 +306,203 @@ def k1_only(torch, root: str, shapes_path: str) -> int:
     if bad:
         raise AssertionError(f"K1 differs from its plain version: {bad}")
     return 0
+
+
+def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
+    """Phase 6: the 3-party collective keygen, bootstrap and decrypt at
+    PN14QP438 on the card, then K1, K4, K5 and K6 against their plain
+    versions at every shape the phase launched them with.  Appends the
+    kernels' records to `kernels` and returns the phase's record."""
+    from sfgwas_tpu_torch.crypto import basics as B
+    from sfgwas_tpu_torch.crypto import ckks as C
+    from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.ops import cuda_build, cuda_ntt, rns
+    from sfgwas_tpu_torch.parallel.simulate import run_network_parties
+    from sfgwas_tpu_torch.utils import prof
+
+    preset, nvec, low_nmod, reps = "PN14QP438", 8, 3, 3
+    params = get_params(preset)
+    band = params.mm_nmod
+    two_n = 2 * params.n
+    n_keys = len({pow(5, k, two_n) for k in PM.generate_rot_shifts(params.slots)} | {two_n - 1})
+    rng = np.random.default_rng(seed + 1)
+    data = {p: rng.normal(size=(nvec, params.slots)) for p in (1, 2)}
+    want = data[1] + data[2]
+
+    # the inputs of the first launch of every kernel at each shape, and the
+    # launches per shape, recorded at the wrappers; launches made for the
+    # comparisons below are not counted in the phase's counts, which are
+    # read before them
+    rec = _Recorder()
+    rec.wrap(cuda_ntt, "ntt_b_kernel", "k1", _k1_key)
+    rec.wrap(C, "uniform_mod", "uniform_mod", lambda q, mu, sd, idx, b, logn: (b, q.shape[0]))
+    rec.wrap(PM, "bs_mask", "bs_mask", lambda *a: (a[8], a[0].shape[0], a[1].shape[0], a[9]))
+    rec.wrap(PM, "bs_combine", "bs_combine", lambda *a: tuple(a[0].shape) + (a[1].shape[1],))
+    rec.wrap(rns, "crt_lift", "crt_lift", lambda x, t: (tuple(x.shape), t["p"].shape[0]))
+    real, counts = rec.real, rec.counts
+
+    keygen_done = threading.Barrier(3)
+    data_sync = threading.Barrier(2)
+    profiled: dict = {}
+
+    def party(net):
+        pid = net.pid
+        cps = PM.collective_init(net, preset)
+        torch.cuda.synchronize()
+        setup = prof.totals()
+        keygen_done.wait(timeout=600)
+        if pid == 1:  # the spans synchronize: off for the timed runs
+            prof.ENABLED, prof.SYNC = False, None
+        keygen_done.wait(timeout=600)
+        if pid == 0:
+            return {"setup": setup, "rot_keys": len(cps.rot_keys)}
+        ctx = cps.ctx
+        cts = [B.encrypt_float_vector(cps, data[pid][i])[0] for i in range(nvec)]
+        low = [ctx.drop_to(ct, low_nmod) for ct in PM.aggregate_cvec(net, cps, cts)]
+
+        def timed(fn):
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(reps):
+                out = fn()
+            torch.cuda.synchronize()
+            return out, (time.time() - t0) / reps * 1e3
+
+        res_band, ms_band = timed(lambda: PM.collective_bootstrap_many(net, cps, low, -1, band))
+        res_top, ms_top = timed(lambda: PM.collective_bootstrap_many(net, cps, low, -1))
+        pts, ms_dec = timed(lambda: PM.collective_decrypt_many(net, cps, res_band, -1))
+        pts = pts + PM.collective_decrypt_many(net, cps, res_top, -1)
+        got = np.stack([ctx.decode(pt) for pt in pts])
+        errs = [float(np.abs(got[:nvec] - want).max()), float(np.abs(got[nvec:] - want).max())]
+        # one band bootstrap traced over all threads
+        data_sync.wait(timeout=600)
+        if pid == 1:
+            box = {}
+
+            def traced():
+                data_sync.wait(timeout=600)
+                box["out"] = PM.collective_bootstrap_many(net, cps, low, -1, band)
+                data_sync.wait(timeout=600)
+
+            profiled.update(_profile(torch, traced, os.path.join(out_dir, "bs_profile.txt"),
+                                     all_threads=True))
+        else:
+            data_sync.wait(timeout=600)
+            PM.collective_bootstrap_many(net, cps, low, -1, band)
+            data_sync.wait(timeout=600)
+        return {
+            "setup": setup, "rot_keys": len(cps.rot_keys), "decode_err": errs,
+            "levels": [res_band[0].nmod, res_top[0].nmod],
+            "scales_exact": all(ct.scale == params.scale for ct in res_band),
+            "ms_bootstrap_band": ms_band, "ms_bootstrap_top": ms_top, "ms_decrypt": ms_dec,
+        }
+
+    cuda_build.reset_launch_counts()
+    prof.reset()
+    prof.ENABLED, prof.SYNC = True, torch.cuda.synchronize
+    t0 = time.time()
+    try:
+        res = run_network_parties(3, party, timeout=900)
+    finally:
+        prof.ENABLED, prof.SYNC = False, None
+        rec.restore()
+    torch.cuda.synchronize()
+    t_phase = time.time() - t0
+    launches = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+    hub = res[1]
+    setup_s = {k: hub["setup"][k][0] for k in ("ckg", "rkg", "rtg")}
+    _say(f"mhe set-up (party 1, s): public key {setup_s['ckg']:.3f}, relinearisation key "
+         f"{setup_s['rkg']:.3f}, rotation keys ({hub['rot_keys']}) {setup_s['rtg']:.3f}; "
+         f"whole phase {t_phase:.1f} s")
+    for pid in (1, 2):
+        r = res[pid]
+        _say(f"mhe party {pid}: bootstrap of {nvec} to nmod {r['levels'][0]} (scale reset) "
+             f"{r['ms_bootstrap_band']:.3f} ms, to nmod {r['levels'][1]} "
+             f"{r['ms_bootstrap_top']:.3f} ms, decrypt of {nvec} {r['ms_decrypt']:.3f} ms; "
+             f"decode vs numpy sum max abs err {r['decode_err']}")
+        bad = max(r["decode_err"])
+        if not np.isfinite(bad) or bad >= 1e-3:
+            raise AssertionError(f"party {pid}: collective decode off by {r['decode_err']}")
+        if r["levels"] != [band, params.nq] or not r["scales_exact"]:
+            raise AssertionError(f"party {pid}: refreshed to {r['levels']}, exact scale "
+                                 f"{r['scales_exact']}")
+        if r["rot_keys"] != n_keys:
+            raise AssertionError(f"party {pid}: {r['rot_keys']} rotation keys")
+    _say(f"launches: mhe path {json.dumps(launches)}")
+    missing = [k for k in MHE_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the mhe path: {missing}")
+    _say(f"profile of one bootstrap of {nvec}: {json.dumps(profiled)}")
+    if profiled["host_threads"] < 2:
+        raise AssertionError("the bootstrap's profile traced one thread: party 2's host "
+                             "operations are missing")
+    if profiled["host_readbacks"]:
+        raise AssertionError(f"the bootstrap read {profiled['host_readbacks']} device values "
+                             "back to the host")
+
+    # K1 at every recorded (direction, rows, shape)
+    k1_shapes = rec.k1_shapes()
+    del rec.args["k1"]  # K1 is checked on random residues of the rows' primes
+    for sym, inv in (("ntt_fwd", False), ("ntt_inv", True)):
+        if sum(n for i, _, _, n in k1_shapes if i == inv) != launches[sym]:
+            raise AssertionError(f"K1 shapes recorded {k1_shapes} miss launches of {sym}")
+    first = len(kernels)
+    k1_total = _k1_rows(torch, cuda_ntt, rns, params.basis, k1_shapes, torch.device("cuda", 0),
+                        kernels, per="launches_at_shape")
+    for k in kernels[first:]:
+        k["launches"], k["path"] = launches[k["kernel"]], "mhe"
+    _say(f"K1 over the mhe phase: {k1_total:.4f} ms (sum of launches x ms) at "
+         f"{len(k1_shapes)} shapes")
+
+    # K4, K5 and K6 at every recorded shape
+    N = params.n
+    src = {"bs_mask": ("sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:601"),
+           "bs_combine": ("sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:636"),
+           "crt_lift": ("sfgwas_tpu_torch/csrc/crt_lift.cu", "sfgwas_tpu/ops/rns.py:540")}
+
+    def check(name, key, shape, run, run_plain, nbytes, ops):
+        _check(torch, kernels, f"{name} {list(shape)}", name, src[name][0], src[name][1],
+               list(shape), run, run_plain, max(5, min(100, int(2e8 // (nbytes + 1)))), 1,
+               nbytes, ops)
+        kernels[-1]["launches"] = launches[name]
+        kernels[-1]["launches_at_shape"] = counts[(name, key)]
+        kernels[-1]["path"] = "mhe"
+
+    first = len(kernels)
+    _k4_rows(torch, C, rec, N, kernels)
+    for k in kernels[first:]:
+        k["launches"], k["path"] = launches["uniform_mod"], "mhe"
+    for key, a in sorted(rec.args["bs_mask"].items()):
+        pw_l, pw_f, q_l, q_f, mu_l, mu_f, sd, idx, b, nwords, top, logn = a
+        L, Lf = q_l.shape[0], q_f.shape[0]
+        cols = b * N
+        check("bs_mask", key, [nwords, b, L, Lf, N],
+              lambda: list(real["bs_mask"](*a)),
+              lambda: list(PM.bs_mask_plain(pw_l, pw_f, q_l, q_f, sd, idx, b, nwords, top, N)),
+              4 * (L + Lf) * cols,
+              cols * (nwords * (THREEFRY_OPS + 2) + (L + Lf) * (2 * nwords + BARRETT_OPS)))
+    for key, a in sorted(rec.args["bs_combine"].items()):
+        b, L, _, Lf = key
+        check("bs_combine", key, [b, L, Lf, N],
+              lambda: list(real["bs_combine"](*a)),
+              lambda: list(PM.bs_combine_plain(*a[:11])),
+              4 * N * (4 * b * (L + Lf) + L + Lf),  # 3 inputs + 1 output per residue, sk rows
+              b * N * (L * (4 + BARRETT_OPS) + Lf * (6 + 2 * BARRETT_OPS)))
+    for key, (x, t) in sorted(rec.args["crt_lift"].items()):
+        (l, M), D = key
+        check("crt_lift", key, [l, D, M],
+              lambda: [real["crt_lift"](x, t)], lambda: [rns.crt_lift_plain(x, t)],
+              4 * M * (l + D), M * (l * (3 + BARRETT_OPS) + D * (2 * l + 2 + BARRETT_OPS)))
+    return {
+        "preset": preset, "parties": 3, "vectors": nvec, "low_nmod": low_nmod,
+        "setup_s": setup_s, "rotation_keys": hub["rot_keys"], "phase_s": t_phase,
+        "parties_out": {str(p): {k: v for k, v in res[p].items() if k != "setup"} for p in (1, 2)},
+        "launches": launches, "profile": profiled, "k1_total_ms": k1_total,
+        "shapes": {name: [list(k) for k in r] for name, r in rec.args.items()},
+        "k1_shapes": k1_shapes,
+    }
 
 
 def main() -> int:
@@ -270,7 +560,10 @@ def main() -> int:
     if spilled or not all(ptxas[n] for n in cuda_build.SOURCES):
         raise AssertionError(f"ptxas: spills in {spilled} or no report")
 
-    # ---- 3. the main path
+    # ---- 3. the main path; K4's launches (rotation keygen) recorded at its
+    # wrapper for phase 5
+    k4_rec = _Recorder()
+    k4_rec.wrap(C, "uniform_mod", "uniform_mod", lambda q, mu, sd, idx, b, logn: (b, q.shape[0]))
     cuda_build.reset_launch_counts()
     t_main = time.time()
     params = get_params("PN14QP438")
@@ -295,8 +588,11 @@ def main() -> int:
     shifts.discard(0)
     gels = sorted({ctx.galois_for_rotation(k) for k in shifts})
     t = time.time()
-    cps.rot_keys.update(ctx.gen_rot_keys_batched(sk, gels, rng, key_nmod=params.mm_nmod))
-    torch.cuda.synchronize()
+    try:
+        cps.rot_keys.update(ctx.gen_rot_keys_batched(sk, gels, rng, key_nmod=params.mm_nmod))
+        torch.cuda.synchronize()
+    finally:
+        k4_rec.restore()
     t_keys = time.time() - t
     Qm = rng.normal(size=(ncols, n_ind))
     A = [[ctx.drop_to(B.encrypt_float_vector(cps, Qm[i])[0], nmod)] for i in range(ncols)]
@@ -312,6 +608,8 @@ def main() -> int:
     want = Qm @ geno.astype(np.float64)
     err = float(np.abs(got[:, :n_snp] - want).max())
     launches = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+    if sum(k4_rec.counts.values()) != launches["uniform_mod"]:
+        raise AssertionError("K4 launched on the main path outside the rotation keygen")
     t_main = time.time() - t_main
     k_total = sum(len(blk.giants) for row in cache for blk in row)
     gmacs = 2 * ncols * k_total * nmod * ctx.n / dt / 1e9
@@ -322,7 +620,7 @@ def main() -> int:
     _say(f"decode vs Q^T G: max abs err {err:.3e}")
     if not np.isfinite(got).all() or err >= 1e-2:
         raise AssertionError(f"decoded product off: max abs err {err}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in MM_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     # launches of one mat_mult_cached call
@@ -332,21 +630,15 @@ def main() -> int:
     per_call = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
     _say(f"launches: main path {json.dumps(launches)}; one mat_mult_cached {json.dumps(per_call)}")
     # K1's (direction, prime rows, shape) in one call, recorded at its wrapper
-    k1_calls: collections.Counter = collections.Counter()
-    k1_launch = cuda_ntt.ntt_b_kernel
-
-    def k1_recording(x, basis, rows, inverse=False):
-        k1_calls[(bool(inverse), tuple(rows), tuple(x.shape))] += 1
-        return k1_launch(x, basis, rows, inverse)
-
-    cuda_ntt.ntt_b_kernel = k1_recording
+    k1_rec = _Recorder()
+    k1_rec.wrap(cuda_ntt, "ntt_b_kernel", "k1", _k1_key)
     try:
         MM.mat_mult_cached(cps, A, cache)
         torch.cuda.synchronize()
     finally:
-        cuda_ntt.ntt_b_kernel = k1_launch
-    k1_shapes = [[inv, list(rows), list(shape), n] for (inv, rows, shape), n in
-                 sorted(k1_calls.items(), key=lambda kv: kv[0][0])]
+        k1_rec.restore()
+    k1_shapes = k1_rec.k1_shapes()
+    del k1_rec
     for sym, inv in (("ntt_fwd", False), ("ntt_inv", True)):
         if sum(n for i, _, _, n in k1_shapes if i == inv) != per_call[sym]:
             raise AssertionError(f"K1 shapes recorded {k1_shapes} miss launches of {sym}")
@@ -397,6 +689,9 @@ def main() -> int:
     k1_total = _k1_rows(torch, cuda_ntt, rns, params.basis, k1_shapes, dev, kernels)
     _say(f"K1 over one mat_mult_cached: {k1_total:.4f} ms (sum of launches x ms), "
          f"profiler {profiled['k1_ms']:.4f} ms")
+    # K4 at the rotation keygen's draws
+    _k4_rows(torch, C, k4_rec, N, kernels)
+    del k4_rec
     plan = MM._plan_for(cps, cache, nmod, row_batch=ncols)
     gi = plan.giant_index(ctx)
 
@@ -464,8 +759,14 @@ def main() -> int:
     del ext
 
     for k in kernels:
-        k["launches"] = launches[k["kernel"]]
+        k["launches"], k["path"] = launches[k["kernel"]], "block_product"
         k.setdefault("launches_per_mat_mult", per_call[k["kernel"]])
+    del cache, A, out, pout, cps, pcps, plan, gi, ig0, ig1, ik0, ik1, C1s
+    torch.cuda.empty_cache()
+
+    # ---- 6. the MHE collective layer
+    mhe = mhe_phase(torch, args.seed, out_dir, kernels)
+
     _say("kernel checks: " + ", ".join(
         f"{k['name']} equal={k['bit_equal']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
         f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})" for k in kernels))
@@ -488,6 +789,7 @@ def main() -> int:
         },
         "profile": profiled,
         "k1_total_ms": k1_total,
+        "mhe": mhe,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

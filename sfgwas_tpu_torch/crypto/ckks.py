@@ -7,10 +7,11 @@ the special prime is the last row of the full basis.  Key switching uses
 the alpha = 1 gadget: per-prime digits, switching keys
     ksk[j] = (-a_j s + e_j + (P mod q_j) * s_src * 1_{row j},  a_j).
 
-On the card every NTT runs on kernel K1 (ops/cuda_ntt.py) and the digit
+On the card every NTT runs on kernel K1 (ops/cuda_ntt.py), the digit
 contraction of the keyswitch on kernel K3 (ks_digit_product below, source
-csrc/ks_digit.cu).  ModUp's basis extension, ModDown and the Galois gathers
-are plain torch in this slice.
+csrc/ks_digit.cu) and the threefry draw of uniform residues on kernel K4
+(device_uniform_b below, source csrc/crp.cu).  ModUp's basis extension,
+ModDown and the Galois gathers are plain torch.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import rns
+from ..ops import rns, threefry
 from ..ops.cuda_build import CudaKernel, check, ptr
-from ..ops.rns import _csub, _sel, add_mod, mul_mod_barrett, mul_mod_shoup, neg_mod, sub_mod
+from ..ops.rns import _csub, _sel, add_mod, mul_mod, mul_mod_barrett, mul_mod_shoup, neg_mod, sub_mod
+from ..utils.log import log
 from .encoding import Encoder
 from .params import CkksParams
 
@@ -152,6 +154,61 @@ def ks_digit_product(ext, key0, key1, q, mu, logn: int):
     return out0, out1
 
 
+# ---------------------------------------------------------------------------
+# Kernel K4: threefry uniform residues (the common reference polynomials)
+
+UNIFORM_MOD = CudaKernel(
+    "crp", "uniform_mod", [_P, _P, _P] + [ctypes.c_uint] * 3 + [_I] * 3
+)
+
+
+def uniform_mod_plain(q, seed, idx: int, batch: int, n: int):
+    """Plain version of K4: [batch, L, n] residues of the rows whose primes
+    are q [L, 1], drawn as sfgwas_tpu/crypto/ckks.py::device_uniform_b draws
+    them: words hi, lo of jax.random.bits(key, (2, batch, L, n)), folded as
+    (hi mod q) * (2^32 mod q) + (lo mod q) mod q."""
+    L = q.shape[0]
+    total = batch * L * n
+    key = threefry.derive_key(seed[0], seed[1], idx)
+    hi = threefry.bits(key, 0, total, q.device).view(batch, L, n)
+    lo = threefry.bits(key, total, total, q.device).view(batch, L, n)
+    qv = q.long().view(1, L, 1)
+    v = torch.remainder(hi, qv) * torch.remainder(torch.full_like(qv, 1 << 32), qv)
+    return torch.remainder(v + torch.remainder(lo, qv), qv).to(torch.int32)
+
+
+def uniform_mod(q, mu, seed, idx: int, batch: int, logn: int):
+    """Kernel K4 for a CUDA q (the plain version for a CPU q): q [L, 1]
+    int32 and mu [L] int64 (rns.barrett_mu64) of the rows; seed = (lo, hi)
+    32-bit words, idx the draw's index."""
+    n = 1 << logn
+    if q.device.type == "cpu":
+        return uniform_mod_plain(q, seed, idx, batch, n)
+    L = q.shape[0]
+    check(q, "q", q.device, (L, 1))
+    check(mu, "mu", q.device, (L,), torch.int64)
+    out = torch.empty((batch, L, n), dtype=torch.int32, device=q.device)
+    if out.numel():
+        UNIFORM_MOD.launch(
+            q.device, ptr(out), ptr(q), ptr(mu), int(seed[0]) & threefry.MASK,
+            int(seed[1]) & threefry.MASK, int(idx) & threefry.MASK, batch, L, logn,
+        )
+    return out
+
+
+def device_uniform_b(ctx: "CkksContext", rows, batch: int, seed, idx):
+    """Counter-based uniform residues [batch, len(rows), N] on ctx's device,
+    bit-equal to the reference's draw for the same (seed, idx, rows, batch)
+    on every device: the CRP property that lets parties derive identical
+    polynomials from a shared seed.  Kernel K4 unless ctx runs plain."""
+    rows = tuple(rows)
+    q = ctx._t(rows)["q"]
+    if not ctx.kernels:
+        return uniform_mod_plain(q, seed, int(idx), batch, ctx.n)
+    mu = rns.barrett_mu64(ctx.basis, rows, ctx.device)
+    return uniform_mod(q, mu, seed, int(idx), batch, ctx.params.logn)
+
+
 class CkksContext:
     """CKKS operations on one device.  device=None means the CUDA card
     (raises without one); kernels=False runs the plain torch version of
@@ -183,6 +240,10 @@ class CkksContext:
         self._exp_pos = None
         self._perm_cache: Dict[int, torch.Tensor] = {}
         self._const_cache: Dict = {}
+        # tolerance-accepted scale drift on adds with no level left
+        # (counted and surfaced, never silent)
+        self.scale_drift_accepts = 0
+        self.scale_drift_max = 0.0
 
     # ------------------------------------------------------------ helpers
 
@@ -256,6 +317,24 @@ class CkksContext:
         p0 = add_mod(neg_mod(mul_mod_barrett(a, sk.s, t["q"], t["mu"]), t["q"]), e, t["q"])
         return PublicKey(p0, a)
 
+    def _gadget_terms(self, s_src: torch.Tensor) -> torch.Tensor:
+        """(P mod q_j) * s_src[j] per digit row j: [nq, N]."""
+        return self._gadget_terms_b(s_src[None])[0]
+
+    def kswitch_share(self, s_tgt, s_diag: Optional[torch.Tensor], a, e):
+        """Switching-key share for all digits at once:
+        share[j] = -a[j]*s_tgt + e[j] (+ (P mod q_j)*s_diag[j] at row j).
+        a, e: [nq, nq+1, N]; returns [nq, nq+1, N]."""
+        t = self._t(self.full_rows)
+        q = t["q"][None]
+        k0 = add_mod(neg_mod(mul_mod(a, s_tgt[None], q), q), e, q)
+        if s_diag is not None:
+            diag = torch.arange(self.nq, device=self.device)
+            k0[diag, diag] = add_mod(
+                k0[diag, diag], self._gadget_terms(s_diag), t["q"][: self.nq]
+            )
+        return k0
+
     def _gadget_terms_b(self, s_src_b: torch.Tensor) -> torch.Tensor:
         """(P mod q_j) * s_src_b[:, j] per digit row j: [B, nq, N]."""
         pj = np.array([self.params.special % qj for qj in self.params.q_primes], np.uint32)
@@ -285,14 +364,11 @@ class CkksContext:
         chunk: int = 16,
     ) -> Dict[int, KSwitchKey]:
         """Local rotation keygen for many Galois elements, keys sliced to
-        key_nmod digits/rows and resident on the device.
-
-        The reference draws the uniform `a` halves from jax's threefry
-        stream (ckks.device_uniform_b); here they come from a numpy
-        generator seeded with the same two words drawn from `rng` and the
-        chunk offset.  The error terms consume `rng` exactly as the
-        reference does.  Keys therefore differ from the reference's; parity
-        tests carry the reference's keys across (interop.py)."""
+        key_nmod digits/rows and resident on the device.  The uniform halves
+        are threefry draws (device_uniform_b, kernel K4) seeded with two
+        words from `rng`, one draw per chunk with the chunk's offset as its
+        index, and the error terms consume `rng` after them: the reference's
+        draws, so the same rng gives the reference's keys bit for bit."""
         key_nmod = min(key_nmod or self.nq, self.nq)
         rows = tuple(range(key_nmod)) + (self.sp_row,)
         nr = len(rows)
@@ -304,8 +380,7 @@ class CkksContext:
         for c0 in range(0, len(gels), chunk):
             gs = list(gels[c0 : c0 + chunk])
             B = len(gs)
-            crp = np.random.default_rng([seed[0], seed[1], c0])
-            a = self.sample_uniform_b(crp, rows, B * key_nmod).reshape(
+            a = device_uniform_b(self, rows, B * key_nmod, seed, c0).reshape(
                 B, key_nmod, nr, self.n
             )
             e = self.small_to_rns_b(
@@ -354,10 +429,107 @@ class CkksContext:
         assert nmod <= ct.nmod
         return Ciphertext(ct.c0[:nmod], ct.c1[:nmod], nmod, ct.scale)
 
+    def _match(self, a: Ciphertext, b: Ciphertext):
+        nmod = min(a.nmod, b.nmod)
+        return self.drop_to(a, nmod), self.drop_to(b, nmod), tuple(range(nmod))
+
     def zero_ct(self, nmod: Optional[int] = None) -> Ciphertext:
         nmod = nmod or self.nq
         z = torch.zeros((nmod, self.n), dtype=torch.int32, device=self.device)
         return Ciphertext(z, z, nmod, self.params.scale)
+
+    # ---------------------------------------------------------- arithmetic
+
+    # Paired-prime rescaling leaves scales drifting off the preset scale by
+    # the pair-product/Delta ratio.  Scales within _SCALE_EQ are absorbed by
+    # keeping the first operand's scale; past it, add/sub and add_plain align
+    # the operands exactly with a scale-targeted constant multiply and a
+    # rescale; with no level left, only drift-sized mismatch (_SCALE_TOL) is
+    # accepted, counted in scale_drift_accepts.
+    _SCALE_EQ = 5e-4
+    _SCALE_TOL = 2.5e-2
+
+    def _accept_drift(self, s_a: float, s_b: float) -> None:
+        drift = abs(s_a / s_b - 1)
+        assert drift < self._SCALE_TOL, (s_a, s_b)
+        self.scale_drift_accepts += 1
+        self.scale_drift_max = max(self.scale_drift_max, drift)
+        if self.scale_drift_accepts in (1, 10, 100, 1000, 10000):
+            log(
+                f"ckks: tolerance-aligned add #{self.scale_drift_accepts} "
+                f"(rel drift {drift:.2e}, max {self.scale_drift_max:.2e})"
+            )
+
+    def _align_scales(self, a: Ciphertext, b: Ciphertext):
+        """Bring two ciphertexts to exactly equal scales: the lower-scale
+        operand is multiplied by a constant one encoded at the scale that
+        retargets it onto the other's, then rescaled (one level)."""
+        if abs(a.scale / b.scale - 1) < self._SCALE_EQ:
+            return a, b
+        if min(a.nmod, b.nmod) < self.params.base_nmod + 2:
+            self._accept_drift(a.scale, b.scale)
+            return a, b
+        if a.scale < b.scale:
+            a = self.rescale(self.mul_const_to(a, 1.0, b.scale))
+        else:
+            b = self.rescale(self.mul_const_to(b, 1.0, a.scale))
+        return a, b
+
+    def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        a, b = self._align_scales(a, b)
+        a, b, rows = self._match(a, b)
+        q = self._t(rows)["q"]
+        return Ciphertext(add_mod(a.c0, b.c0, q), add_mod(a.c1, b.c1, q), a.nmod, a.scale)
+
+    def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        a, b = self._align_scales(a, b)
+        a, b, rows = self._match(a, b)
+        q = self._t(rows)["q"]
+        return Ciphertext(sub_mod(a.c0, b.c0, q), sub_mod(a.c1, b.c1, q), a.nmod, a.scale)
+
+    def neg(self, a: Ciphertext) -> Ciphertext:
+        q = self._t(range(a.nmod))["q"]
+        return Ciphertext(neg_mod(a.c0, q), neg_mod(a.c1, q), a.nmod, a.scale)
+
+    def add_plain(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+        """A plaintext added to a ciphertext whose scale drifted off the
+        plaintext's would misdecode the plaintext by the ratio, so the
+        ciphertext is first retargeted onto the plaintext's scale where a
+        level is left (else the counted drift tolerance applies)."""
+        if abs(a.scale / pt.scale - 1) >= self._SCALE_EQ:
+            if min(a.nmod, pt.nmod) >= self.params.base_nmod + 2:
+                a = self.rescale(self.mul_const_to(a, 1.0, pt.scale))
+            else:
+                self._accept_drift(a.scale, pt.scale)
+        nmod = min(a.nmod, pt.nmod)
+        q = self._t(range(nmod))["q"]
+        return Ciphertext(add_mod(a.c0[:nmod], pt.poly[:nmod], q), a.c1[:nmod], nmod, a.scale)
+
+    def _mul_pair(self, c0, c1, p, nmod: int):
+        q = self._t(range(nmod))["q"]
+        return mul_mod(c0, p, q), mul_mod(c1, p, q)
+
+    # ------------------------------------------------------------- consts
+
+    def const_poly(self, value: float, nmod: int, scale: float) -> torch.Tensor:
+        """Residues of round(value*scale) as [nmod, 1] (a constant is the
+        same in every NTT slot)."""
+        c = int(round(value * scale))
+        res = np.array([c % self.basis.primes[i] for i in range(nmod)], dtype=np.uint32)
+        return self.to_dev(res)[:, None]
+
+    def mul_const(self, ct: Ciphertext, value: float, scale: Optional[float] = None):
+        """Multiply by a scalar encoded at `scale` (default: the preset
+        scale); the caller rescales."""
+        sc = scale or self.params.scale
+        c0, c1 = self._mul_pair(ct.c0, ct.c1, self.const_poly(value, ct.nmod, sc), ct.nmod)
+        return Ciphertext(c0, c1, ct.nmod, ct.scale * sc)
+
+    def mul_const_to(self, ct: Ciphertext, value: float, target: float):
+        """Multiply by a scalar encoded at the scale that makes the result
+        land exactly at `target` after rescale() (SetScale)."""
+        pair = float(self.basis.primes[ct.nmod - 1]) * float(self.basis.primes[ct.nmod - 2])
+        return self.mul_const(ct, value, target * pair / ct.scale)
 
     # ------------------------------------------------------------ rescale
 
@@ -590,3 +762,6 @@ class CkksContext:
     def galois_for_rotation(self, k: int) -> int:
         """Galois element for a left rotation by k slots."""
         return pow(5, k % self.params.slots, 2 * self.n)
+
+    def galois_conjugate(self) -> int:
+        return 2 * self.n - 1

@@ -92,6 +92,13 @@ class CkksParams:
         Rotation keys are generated sliced to this band."""
         return min(self.nq, self.base_nmod + 2 * MM_LEVELS)
 
+    def q_prod(self, nmod: int) -> int:
+        """Q of the first nmod primes."""
+        out = 1
+        for q in self.q_primes[:nmod]:
+            out *= q
+        return out
+
     def __hash__(self):
         return hash((self.spec,))
 

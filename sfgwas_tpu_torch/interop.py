@@ -8,7 +8,7 @@ converts.  This is the port's counterpart of loading a model's weights.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -23,16 +23,30 @@ def crypto_params(
     pk: Tuple[np.ndarray, np.ndarray],
     rot_keys: Dict[int, Tuple[np.ndarray, np.ndarray]],
     enc_rng: np.random.Generator = None,
+    rlk: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ) -> CryptoParams:
-    """SecretKey.s, PublicKey (p0, p1) and rotation keys {g: (d0, d1)} ->
-    a CryptoParams (no relinearisation key in this slice)."""
+    """SecretKey.s (a party's shard, for a collective bundle), PublicKey
+    (p0, p1), rotation keys {g: (d0, d1)} and the relinearisation key
+    (d0, d1), if any -> a CryptoParams."""
     return CryptoParams(
         ctx,
         C.SecretKey(ctx.to_dev(sk)),
         C.PublicKey(ctx.to_dev(pk[0]), ctx.to_dev(pk[1])),
-        None,
+        None if rlk is None else C.KSwitchKey(ctx.to_dev(rlk[0]), ctx.to_dev(rlk[1])),
         {int(g): C.KSwitchKey(ctx.to_dev(d0), ctx.to_dev(d1)) for g, (d0, d1) in rot_keys.items()},
         enc_rng,
+    )
+
+
+def bundle_arrays(cps) -> dict:
+    """A key bundle on the host (the reference's CryptoParams, or the
+    port's on the CPU) as numpy arrays: the keyword arguments of
+    crypto_params but the context."""
+    a = np.asarray
+    return dict(
+        sk=a(cps.sk.s), pk=(a(cps.pk.p0), a(cps.pk.p1)),
+        rot_keys={g: (a(k.d0), a(k.d1)) for g, k in cps.rot_keys.items()},
+        rlk=None if cps.rlk is None else (a(cps.rlk.d0), a(cps.rlk.d1)),
     )
 
 

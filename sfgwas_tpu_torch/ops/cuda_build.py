@@ -7,6 +7,10 @@ sfgwas_tpu_torch/_build/ (listed in .gitignore), named by a hash of the
 source, the shared headers csrc/*.cuh and the flags, so a changed source or
 header is rebuilt at its first use.
 Nothing is built or loaded when this module is imported.
+
+The parties of a local simulation are threads that share one card, so the
+first use of a library (build, load, bind) and the launch counters are
+guarded by one lock.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List
@@ -31,7 +36,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("ntt", "mac_dense", "ks_digit")
+SOURCES = ("ntt", "mac_dense", "ks_digit", "crp", "bs_share", "crt_lift")
 
 
 def _nvcc() -> str:
@@ -117,15 +122,19 @@ def ptxas_report(name: str) -> List[Dict]:
 
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# guards _libs, the build at first use, each kernel's binding and its
+# launch count (party threads launch concurrently)
+_lock = threading.RLock()
 
 
 def load(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        out = _target(name)
-        if not out.exists():
-            build([name])
-        _libs[name] = ctypes.CDLL(str(out))
-    return _libs[name]
+    with _lock:
+        if name not in _libs:
+            out = _target(name)
+            if not out.exists():
+                build([name])
+            _libs[name] = ctypes.CDLL(str(out))
+        return _libs[name]
 
 
 # every CudaKernel ever constructed, by kernel name (read by chip_smoke.py)
@@ -147,14 +156,18 @@ class CudaKernel:
         REGISTRY[symbol] = self
 
     def _bind(self):
-        lib = load(self.lib)
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        err = getattr(lib, "csrc_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        self._fn, self._err = fn, err
+        with _lock:
+            if self._fn is not None:
+                return
+            lib = load(self.lib)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, "csrc_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._err = err
+            self._fn = fn  # last: another thread sees a bound kernel only when complete
 
     def launch(self, device: torch.device, *args) -> None:
         if self._fn is None:
@@ -165,12 +178,14 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {rc} ({self._err(rc).decode()})"
             )
-        self.launches += 1
+        with _lock:
+            self.launches += 1
 
 
 def reset_launch_counts() -> None:
-    for k in REGISTRY.values():
-        k.launches = 0
+    with _lock:
+        for k in REGISTRY.values():
+            k.launches = 0
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

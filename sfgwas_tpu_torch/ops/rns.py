@@ -8,15 +8,19 @@ wrapping-uint32 Shoup/Barrett arithmetic bit for bit: both produce the
 canonical residue.
 
 The NTT is the CUDA kernel K1 (ops/cuda_ntt.py) on the card; the butterfly
-functions below are its plain versions.
+functions below are its plain versions.  The collective bootstrap's CRT lift
+is the CUDA kernel K6 (crt_lift below, source csrc/crt_lift.cu).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+
+from .cuda_build import CudaKernel, check, ptr
 
 
 def is_prime(n: int) -> bool:
@@ -336,3 +340,87 @@ def rns_to_ints(res, primes) -> np.ndarray:
         if out[j] > half:
             out[j] -= Q
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel K6: the device CRT lift of protocol-bounded values
+
+_U64, _PTR, _INT = ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int
+CRT_LIFT = CudaKernel("crt_lift", "crt_lift", [_PTR] * 10 + [_INT, _INT, ctypes.c_longlong])
+CRT_LIFT_MAX_ROWS = 24  # LMAX in csrc/crt_lift.cu
+
+
+def _crt_tables(basis: RnsBasis, src_rows, dst_rows, device) -> Dict[str, torch.Tensor]:
+    """K6's tables for src -> dst, cached per (rows, device): w = (Q/q_i)^-1
+    mod q_i [l], inv_q = 1/q_i in float32 [l], T = (Q/q_i) mod p_d [D, l],
+    negQ = p_d - (Q mod p_d) [D], the source and destination primes and
+    their 64-bit Barrett constants."""
+    device = torch.device(device)
+    key = ("crt", tuple(src_rows), tuple(dst_rows), str(device))
+    if key not in basis._cache:
+        qs = [int(basis.primes[r]) for r in src_rows]
+        ps = [int(basis.primes[r]) for r in dst_rows]
+        Q = 1
+        for q in qs:
+            Q *= q
+        u32 = lambda v: as_i32(np.array(v, dtype=np.uint32)).to(device)  # noqa: E731
+        basis._cache[key] = {
+            "w": u32([pow(Q // q, -1, q) for q in qs]),
+            "q": u32(qs),
+            "mu": barrett_mu64(basis, tuple(src_rows), device),
+            "inv_q": torch.tensor(np.array([1.0 / q for q in qs], np.float32)).to(device),
+            "T": u32([[(Q // q) % p for q in qs] for p in ps]),
+            "negQ": u32([(p - Q % p) % p for p in ps]),
+            "p": u32(ps),
+            "mu_p": barrett_mu64(basis, tuple(dst_rows), device),
+        }
+    return basis._cache[key]
+
+
+def crt_lift_plain(x, t: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Plain version of K6 on x [l, M] with the tables of _crt_tables:
+    y = x*w mod q, k = round(sum y * (1/q)) in float32, then
+    sum_i y_i*T[d,i] + k*negQ[d] mod p_d, exact in int64."""
+    q = t["q"].long()[:, None]
+    y = torch.remainder(x.long() * t["w"].long()[:, None], q)  # [l, M]
+    k = torch.round(torch.sum(y.float() * t["inv_q"][:, None], dim=0)).long()  # [M]
+    acc = (t["T"].long()[:, :, None] * y[None]).sum(1) + t["negQ"].long()[:, None] * k[None]
+    return torch.remainder(acc, t["p"].long()[:, None]).to(torch.int32)
+
+
+def crt_lift(x, t: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Kernel K6 for a CUDA x (the plain version for a CPU x): x [l, M]
+    int32 residues -> [D, M] with the tables of _crt_tables."""
+    if x.device.type == "cpu":
+        return crt_lift_plain(x, t)
+    l, M = x.shape
+    D = t["p"].shape[0]
+    if not 1 <= l <= CRT_LIFT_MAX_ROWS:
+        raise ValueError(f"crt_lift: {l} source rows; the kernel takes 1..{CRT_LIFT_MAX_ROWS}")
+    dev = x.device
+    check(x, "x", dev)
+    for name in ("w", "q", "T", "negQ", "p"):
+        check(t[name], name, dev)
+    check(t["inv_q"], "inv_q", dev, (l,), torch.float32)
+    check(t["mu"], "mu", dev, (l,), torch.int64)
+    check(t["mu_p"], "mu_p", dev, (D,), torch.int64)
+    if tuple(t["T"].shape) != (D, l):
+        raise ValueError(f"crt_lift: tables for {tuple(t['T'].shape)}, x has {l} rows")
+    out = torch.empty((D, M), dtype=torch.int32, device=dev)
+    if M:
+        CRT_LIFT.launch(
+            dev, ptr(out), ptr(x), ptr(t["w"]), ptr(t["q"]), ptr(t["mu"]), ptr(t["inv_q"]),
+            ptr(t["T"]), ptr(t["negQ"]), ptr(t["p"]), ptr(t["mu_p"]), l, D, M,
+        )
+    return out
+
+
+def crt_lift_centered_dev(x, basis: RnsBasis, src_rows, dst_rows, plain: bool = False):
+    """Centered CRT basis extension of protocol-bounded values on the device
+    (counterpart of the reference's crt_lift_centered_dev): x [l, M] residues
+    mod the src_rows primes of a centred v with |v| < Q_src/4 -> [len(dst),
+    M] residues of the same v mod the dst_rows primes (fast basis extension
+    with k rounded in float32, exact for such bounded v).  Kernel K6 unless
+    plain=True."""
+    t = _crt_tables(basis, src_rows, dst_rows, x.device)
+    return crt_lift_plain(x, t) if plain else crt_lift(x.contiguous(), t)

@@ -1,7 +1,8 @@
 """Port parity: CKKS keygen, encode/encrypt/decrypt, the keyswitch pieces and
 the batched rotations of sfgwas_tpu_torch against sfgwas_tpu at TEST8.
-Rotation keys come from the reference (threefry CRPs) and are carried
-across with sfgwas_tpu_torch.interop."""
+Both packages generate their keys from the same generator; the port's
+threefry draws (kernel K4's plain version) give the reference's rotation
+keys bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,22 +31,23 @@ def _u32(t):
 @pytest.fixture(scope="module")
 def pair():
     """(reference ctx, port ctx, reference CryptoParams with local rotation
-    keys, port CryptoParams carrying the same keys)."""
+    keys, port CryptoParams with the port's own keys from the same
+    generator, which equal the reference's)."""
     rctx = RC.CkksContext(ref_get_params(PRESET))
     pctx = PC.CkksContext(port_get_params(PRESET), device="cpu")
-    rng = np.random.default_rng(42)
-    sk = rctx.gen_secret_key(rng)
-    pk = rctx.gen_public_key(sk, rng)
     slots = rctx.params.slots
     gels = [rctx.galois_for_rotation(k) for k in (1, 2, 5, 11, 33, slots - 1)]
+    rng, prng = np.random.default_rng(42), np.random.default_rng(42)
+    sk, psk = rctx.gen_secret_key(rng), pctx.gen_secret_key(prng)
+    pk, ppk = rctx.gen_public_key(sk, rng), pctx.gen_public_key(psk, prng)
     rot = rctx.gen_rot_keys_batched(sk, gels, rng, key_nmod=rctx.params.mm_nmod)
+    prot = pctx.gen_rot_keys_batched(psk, gels, prng, key_nmod=pctx.params.mm_nmod)
     rcps = RefCryptoParams(rctx, sk, pk, None, rot, rng)
-    pcps = interop.crypto_params(
-        pctx,
-        np.asarray(sk.s),
-        (np.asarray(pk.p0), np.asarray(pk.p1)),
-        {g: (np.asarray(k.d0), np.asarray(k.d1)) for g, k in rot.items()},
-    )
+    pcps = CryptoParams(pctx, psk, ppk, None, prot, prng)
+    carried = interop.bundle_arrays(rcps)
+    for g, (d0, d1) in carried["rot_keys"].items():
+        assert np.array_equal(_u32(prot[g].d0), d0) and np.array_equal(_u32(prot[g].d1), d1)
+    assert np.array_equal(_u32(psk.s), carried["sk"])
     return rctx, pctx, rcps, pcps, gels
 
 
@@ -164,9 +166,8 @@ def test_ks_digit_product_plain_matches_numpy():
 
 
 def test_port_rotation_keys_rotate(pair):
-    """Keys from the port's own local keygen (its uniform stream differs
-    from the reference's threefry, so the test is functional): a hoisted
-    rotation decrypts to the rotated slots."""
+    """Keys from the port's own local keygen under another generator: a
+    hoisted rotation decrypts to the rotated slots."""
     pctx = pair[1]
     rng = np.random.default_rng(99)
     sk = pctx.gen_secret_key(rng)

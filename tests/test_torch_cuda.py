@@ -252,7 +252,9 @@ def test_mat_mult_cached_kernels_match_plain_path(dev):
     cuda_build.reset_launch_counts()
     out = PMM.mat_mult_cached(cps, A, cache)
     torch.cuda.synchronize()
-    assert all(k.launches > 0 for k in cuda_build.REGISTRY.values())
+    # the product's kernels (K1, K2, K3) all run in it
+    for name in ("ntt_fwd", "ntt_inv", "ks_digit_product", "mac_dense"):
+        assert cuda_build.REGISTRY[name].launches > 0, name
     pcps = CryptoParams(PC.CkksContext(params, device=dev, kernels=False), sk, pk, None,
                         cps.rot_keys, rng)
     pout = PMM.mat_mult_cached(pcps, A, cache)
@@ -262,3 +264,191 @@ def test_mat_mult_cached_kernels_match_plain_path(dev):
             assert torch.equal(a.c0, b.c0) and torch.equal(a.c1, b.c1)
         got = np.concatenate([ctx.decode(ctx.decrypt(ct, sk)) for ct in out[i]])[:m]
         assert np.abs(got - want[i]).max() < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# K4 (uniform_mod), K5 (bs_mask, bs_combine), K6 (crt_lift)
+
+
+@pytest.mark.parametrize("preset,batch,rows,seed,idx", [
+    ("TEST8", 1, (0,), (1, 2), 0),  # one poly of one row
+    ("TEST8", 3, (0, 1, 2, 9), (0xDEADBEEF, 0xFFFFFFFF), 7),  # odd counts, the special row
+    ("TEST10", 5, (0, 3), (12345, 678), 40),
+    ("PN14QP438", 1, tuple(range(18)), (3, 4), 0),  # the public key's draw
+    ("PN14QP438", 7, tuple(range(7)) + (17,), (5, 6), 296),  # the last rotation-key chunk
+])
+def test_uniform_mod_kernel_matches_plain(dev, preset, batch, rows, seed, idx):
+    params = get_params(preset)
+    q = rns._sel(params.basis, rows, dev)["q"]
+    mu = rns.barrett_mu64(params.basis, rows, dev)
+    before = PC.UNIFORM_MOD.launches
+    got = PC.uniform_mod(q, mu, seed, idx, batch, params.logn)
+    torch.cuda.synchronize()
+    assert PC.UNIFORM_MOD.launches == before + 1
+    assert torch.equal(got, PC.uniform_mod_plain(q, seed, idx, batch, params.n))
+    assert bool((got >= 0).all()) and bool((got < q.view(1, -1, 1)).all())
+
+
+def _bs_inputs(dev, preset, rows, tgt_rows, B, nwords, fill, seed):
+    from sfgwas_tpu_torch.mpc import mhe as PM
+
+    params = get_params(preset)
+    ctx = PC.CkksContext(params, device=dev)
+    tl, tf = PM._bs_tables(ctx, rows, nwords), PM._bs_tables(ctx, tgt_rows, nwords)
+    L, Lf = len(rows), len(tgt_rows)
+
+    def res(rws, shape, s):
+        if fill == "random":
+            return _residues(params.basis, rws, shape, s, dev)
+        q = rns._sel(params.basis, rws, dev)["q"].view((len(rws),) + (1,) * len(shape))
+        return torch.zeros((len(rws),) + shape, dtype=torch.int32, device=dev) + (
+            q - 1 if fill == "top" else 0)
+
+    sk = res(ctx.full_rows, (params.n,), seed)
+    c1s = res(rows, (B, params.n), seed + 1).transpose(0, 1).contiguous()
+    crp = res(tgt_rows, (B, params.n), seed + 2).transpose(0, 1).contiguous()
+    e1, m1 = res(rows, (B, params.n), seed + 3), res(rows, (B, params.n), seed + 4)
+    e2, m2 = res(tgt_rows, (B, params.n), seed + 5), res(tgt_rows, (B, params.n), seed + 6)
+    return PM, params, tl, tf, (c1s, crp, sk, tl["rows"], tf["rows"], e1, m1, e2, m2,
+                                tl["q"], tf["q"])
+
+
+@pytest.mark.parametrize("preset,nrows,ntgt,B,nwords,top_bits", [
+    ("TEST8", 1, 1, 1, 1, 1),
+    ("TEST8", 3, 9, 3, 3, 23),
+    ("TEST10", 4, 11, 2, 5, 24),
+    ("PN14QP438", 3, 17, 8, 3, 23),  # the top-level refresh of the chip phase
+    ("PN14QP438", 17, 17, 1, 18, 13),  # the widest mask of the preset
+])
+def test_bs_mask_kernel_matches_plain(dev, preset, nrows, ntgt, B, nwords, top_bits):
+    PM, params, tl, tf, _ = _bs_inputs(dev, preset, tuple(range(nrows)), tuple(range(ntgt)),
+                                       B, nwords, "random", 1)
+    seed = (0x9E3779B9, 0x7F4A7C15)
+    before = PM.BS_MASK.launches
+    got = PM.bs_mask(tl["pw"], tf["pw"], tl["q"], tf["q"], tl["mu"], tf["mu"], seed, 3, B,
+                     nwords, top_bits, params.logn)
+    torch.cuda.synchronize()
+    assert PM.BS_MASK.launches == before + 1
+    want = PM.bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], seed, 3, B, nwords, top_bits,
+                            params.n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("fill", ["random", "zero", "top"])
+@pytest.mark.parametrize("preset,nrows,ntgt,B", [
+    ("TEST8", 1, 1, 1), ("TEST8", 3, 9, 5), ("PN14QP438", 3, 9, 8), ("PN14QP438", 3, 17, 8),
+])
+def test_bs_combine_kernel_matches_plain(dev, preset, nrows, ntgt, B, fill):
+    PM, params, tl, tf, args = _bs_inputs(dev, preset, tuple(range(nrows)), tuple(range(ntgt)),
+                                          B, 2, fill, 7)
+    before = PM.BS_COMBINE.launches
+    got = PM.bs_combine(*args, tl["mu"], tf["mu"], params.logn)
+    torch.cuda.synchronize()
+    assert PM.BS_COMBINE.launches == before + 1
+    want = PM.bs_combine_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _bounded(params, src, dst, M, fill, seed, dev):
+    """Residues over src of centred values |v| < Q/8 (or 0, or -1 = q - 1
+    in every row), and the exact residues over dst."""
+    rng = np.random.default_rng(seed)
+    Q = params.q_prod(len(src))  # src is a prefix of the chain
+    if fill == "random":
+        v = [int(x) * (Q >> 70) // 8 for x in rng.integers(-(1 << 62), 1 << 62, size=M)]
+    else:
+        v = [0 if fill == "zero" else -1] * M
+    x = np.array([[vv % params.basis.primes[r] for vv in v] for r in src], np.uint32)
+    want = np.array([[vv % params.basis.primes[r] for vv in v] for r in dst], np.uint32)
+    return rns.as_i32(x).to(dev), rns.as_i32(want).to(dev)
+
+
+@pytest.mark.parametrize("fill", ["random", "zero", "top"])
+@pytest.mark.parametrize("preset,l,D,M", [
+    ("TEST8", 3, 1, 256),
+    ("TEST8", 3, 9, 3 * 256 + 1),
+    ("PN14QP438", 3, 9, 8 * 16384),  # the band-targeted refresh
+    ("PN14QP438", 3, 17, 8 * 16384),  # the top-level refresh
+    ("PN14QP438", 17, 17, 16384),
+])
+def test_crt_lift_kernel_matches_plain(dev, preset, l, D, M, fill):
+    params = get_params(preset)
+    src, dst = tuple(range(l)), tuple(range(D))
+    x, want = _bounded(params, src, dst, M if fill == "random" else min(M, 4096), fill, l, dev)
+    before = rns.CRT_LIFT.launches
+    got = rns.crt_lift_centered_dev(x, params.basis, src, dst)
+    torch.cuda.synchronize()
+    assert rns.CRT_LIFT.launches == before + 1
+    assert torch.equal(got, rns.crt_lift_centered_dev(x, params.basis, src, dst, plain=True))
+    assert torch.equal(got, want)
+
+
+def test_kernel_limits_match_their_wrappers(dev):
+    from sfgwas_tpu_torch.mpc import mhe as PM
+
+    assert cuda_build.load("bs_share").bs_max_words() == PM.BS_MAX_WORDS
+    assert cuda_build.load("crt_lift").crt_lift_max_rows() == rns.CRT_LIFT_MAX_ROWS
+
+
+def test_bs_share_kernels_match_plain_context(dev):
+    """The whole share (K5, K1, K5) against a context that runs plain."""
+    from sfgwas_tpu_torch.mpc import mhe as PM
+
+    params = get_params("TEST10")
+    kctx = PC.CkksContext(params, device=dev)
+    pctx = PC.CkksContext(params, device=dev, kernels=False)
+    rows, tgt = tuple(range(3)), tuple(range(7))
+    B = 4
+    rng = np.random.default_rng(3)
+    sk = kctx.gen_secret_key(rng)
+    c1s = _residues(params.basis, rows, (B, params.n), 4, dev).transpose(0, 1).contiguous()
+    crp = PC.device_uniform_b(kctx, tgt, B, (1, 2), 0)
+    assert torch.equal(crp, PC.device_uniform_b(pctx, tgt, B, (1, 2), 0))
+    e1 = kctx.small_to_rns_b(np.stack([kctx.sample_gauss(rng) for _ in range(B)]), rows)
+    e2 = kctx.small_to_rns_b(np.stack([kctx.sample_gauss(rng) for _ in range(B)]), tgt)
+    nwords, top = PM._mask_bits(params, len(rows), 3)
+    got = PM.bs_share(kctx, rows, tgt, B, nwords, top, (5, 6), 0, crp, c1s, sk.s, e1, e2)
+    want = PM.bs_share(pctx, rows, tgt, B, nwords, top, (5, 6), 0, crp, c1s, sk.s, e1, e2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_concurrent_first_use_builds_once_and_counts_every_launch(dev, monkeypatch):
+    """Three threads launch K6 for the first time together: its library is
+    built and bound once, and every launch is counted."""
+    import threading
+
+    name = "crt_lift"
+    target = cuda_build._target(name)
+    target.unlink()
+    with cuda_build._lock:
+        cuda_build._libs.pop(name, None)
+        rns.CRT_LIFT._fn = None
+    builds = []
+    real_build = cuda_build.build
+    monkeypatch.setattr(cuda_build, "build", lambda names: builds.append(list(names))
+                        or real_build(names))
+    params = get_params("TEST8")
+    x, want = _bounded(params, (0, 1, 2), tuple(range(9)), 512, "random", 5, dev)
+    before = rns.CRT_LIFT.launches
+    outs, errs = [], []
+    start = threading.Barrier(3)
+
+    def work():
+        try:
+            start.wait(timeout=60)
+            for _ in range(20):
+                outs.append(rns.crt_lift_centered_dev(x, params.basis, (0, 1, 2), tuple(range(9))))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=work) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads) and not errs, errs
+    torch.cuda.synchronize()
+    assert builds == [[name]]
+    assert rns.CRT_LIFT.launches == before + 60
+    assert all(torch.equal(o, want) for o in outs)

@@ -16,6 +16,7 @@ import sfgwas_tpu_torch
 from sfgwas_tpu_torch.crypto import ckks as PC
 from sfgwas_tpu_torch.crypto.params import get_params
 from sfgwas_tpu_torch.gwas import matmult as PMM
+from sfgwas_tpu_torch.mpc import mhe as PM
 from sfgwas_tpu_torch.ops import cuda_build, cuda_ntt
 from sfgwas_tpu_torch.ops import rns
 
@@ -44,6 +45,8 @@ def test_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
     assert len(MODULES) >= 12
+    for m in ("mpc.prg", "parallel.transport", "parallel.simulate", "mpc.mhe", "ops.threefry"):
+        assert "sfgwas_tpu_torch." + m in MODULES
 
 
 def test_sources_name_no_jax():
@@ -92,5 +95,23 @@ def test_wrappers_take_plain_path_on_cpu():
     b0, b1 = PMM.mac_dense_plain(acc.clone(), acc.clone(), *args)
     assert torch.equal(a0, b0) and torch.equal(a1, b1)
     assert a0[1].any() and not a0[0].any()
+
+    # K4, K5 and K6 on CPU tensors
+    seed = (7, 8)
+    assert torch.equal(PC.uniform_mod(q, mu, seed, 3, 2, basis.logn),
+                       PC.uniform_mod_plain(q, seed, 3, 2, basis.n))
+    pw = torch.ones((2, 3), dtype=torch.int32)
+    m = PM.bs_mask(pw, pw, q, q, mu, mu, seed, 0, 2, 3, 5, basis.logn)
+    p = PM.bs_mask_plain(pw, pw, q, q, seed, 0, 2, 3, 5, basis.n)
+    assert torch.equal(m[0], p[0]) and torch.equal(m[1], p[1])
+    rws = torch.tensor(rows, dtype=torch.int32)
+    xb = x.transpose(0, 1).contiguous()  # [B, L, N]
+    args = (xb, xb, x[:, 0], rws, rws, x, x, x, x, q, q)
+    c = PM.bs_combine(*args, mu, mu, basis.logn)
+    p = PM.bs_combine_plain(*args)
+    assert torch.equal(c[0], p[0]) and torch.equal(c[1], p[1])
+    t = rns._crt_tables(basis, rows, (0, 1, 2), "cpu")
+    assert torch.equal(rns.crt_lift(x[:, 0], t), rns.crt_lift_plain(x[:, 0], t))
     assert {k: v.launches for k, v in cuda_build.REGISTRY.items()} == before
-    assert set(cuda_build.REGISTRY) == {"ntt_fwd", "ntt_inv", "ks_digit_product", "mac_dense"}
+    assert set(cuda_build.REGISTRY) == {"ntt_fwd", "ntt_inv", "ks_digit_product", "mac_dense",
+                                        "uniform_mod", "bs_mask", "bs_combine", "crt_lift"}
