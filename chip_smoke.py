@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port (sfgwas_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
-    python3 chip_smoke.py --k1-only DIR --k1-shapes FILE
+    python3 chip_smoke.py --tree DIR --shapes FILE
 
 Phases (any failed check raises; the exit code is then nonzero):
  1. print the card's name and power limit (nvidia-smi);
@@ -23,11 +23,15 @@ Phases (any failed check raises; the exit code is then nonzero):
  4. the same product through the plain torch versions of every kernel on
     the card: the output ciphertexts must be bit-identical;
  5. each kernel against its plain version on the main path's own inputs
-    (bit equality), with both timed by CUDA events, at every shape the
-    main path launches it with: K1 at every (direction, prime rows, shape)
-    that one mat_mult_cached call launches it with, as recorded at its
-    wrapper, each with its launches per call, and K1's total over the call
-    (launches x ms) beside the profiler's device time for K1; K4 at every
+    (bit equality) at every shape the main path launches it with, timed:
+    the kernel's device time per launch from torch.profiler (`ms`; a
+    record whose trace shows no launch of its kernel fails the run), the
+    CUDA-event time of one wrapper call (`call_ms`, which includes the
+    host's work around the launch) and the plain version's (`plain_ms`):
+    K1 at every (direction, prime rows, shape) that one mat_mult_cached
+    call launches it with, as recorded at its wrapper, each with its
+    launches per call, and K1's total over the call (launches x ms) beside
+    the profiler's device time for K1; K4 at every
     draw of the rotation keygen; K3 at the hoisted and the grouped shapes,
     K2 at the block row;
  6. the MHE collective layer at PN14QP438, with every launch count set to
@@ -47,26 +51,32 @@ Phases (any failed check raises; the exit code is then nonzero):
     plain versions at every shape the phase launches them with, recorded at
     their wrappers (K4-K6 on the phase's own inputs, K1 on random residues
     of the rows' primes), and timed;
- 7. one JSON line of kernels, then the final line
+ 7. the static SASS of K4 and K5 (cuobjdump: instructions and opcodes per
+    kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits nonzero and prints no result.
-Writes the record to chiprun_out/chip_smoke.json, K1's shapes to
-chiprun_out/k1_shapes.json and the profiler's tables to
-chiprun_out/mm_profile.txt and chiprun_out/bs_profile.txt.
+Writes the record to chiprun_out/chip_smoke.json, the shapes --tree times
+to chiprun_out/shapes.json, the profiler's tables to
+chiprun_out/mm_profile.txt and chiprun_out/bs_profile.txt and the SASS
+listings to chiprun_out/sass_main_*.txt.
 
---k1-only DIR --k1-shapes FILE times only K1, from the sfgwas_tpu_torch
-package under DIR (for example another commit's tree), at the shapes of a
-k1_shapes.json, each against its plain version, and prints one JSON line:
-two trees are compared by running both in one call.
+--tree DIR --shapes FILE times only K1 (at one product's shapes), K4 (at
+both paths' draws) and bs_mask (at the MHE phase's row sets), from the
+sfgwas_tpu_torch package under DIR (for example another commit's tree), at
+the shapes of a shapes.json, each against its plain version as above, counts
+the SASS of K4 and K5 (chiprun_out/sass_<DIR's name>_*.txt) and prints one
+JSON line: two trees are compared by running both, in turns, in one call.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -85,6 +95,13 @@ BARRETT_OPS = 6  # a 64-bit Barrett reduction: umulhi, multiply, subtract, compa
 # the kernels of each path: a path that launches one of its kernels no time fails
 MM_PATH = ("ntt_fwd", "ntt_inv", "mac_dense", "ks_digit_product", "uniform_mod")
 MHE_PATH = ("ntt_fwd", "ntt_inv", "uniform_mod", "bs_mask", "bs_combine", "crt_lift")
+# each kernel's device function, as torch.profiler names it (a pattern)
+DEVICE_NAMES = {
+    "ntt_fwd": r"ntt_kernel<\d+, false>", "ntt_inv": r"ntt_kernel<\d+, true>",
+    "mac_dense": r"mac_dense_kernel", "ks_digit_product": r"ks_digit_kernel",
+    "uniform_mod": r"uniform_mod_kernel", "bs_mask": r"bs_mask(_generic)?_kernel",
+    "bs_combine": r"bs_combine_kernel", "crt_lift": r"crt_lift_kernel",
+}
 # integer operations per second: the card's 67 TFLOP/s float32 rate outside
 # the tensor cores (NVIDIA data sheet), the only non-tensor rate published;
 # a multiply-add counts as two operations, as a fused multiply-add does in
@@ -110,6 +127,27 @@ def _time_ms(torch, fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _device_ms(torch, fn, reps: int, kernel: str):
+    """Device milliseconds per launch of `kernel` over `reps` calls of fn
+    after one warm-up: the sum of the durations torch.profiler records for
+    the device functions named DEVICE_NAMES[kernel], over their count
+    (returned too).  Raises when the trace holds no such launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pat = re.compile(DEVICE_NAMES[kernel])
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name)]
+    if not durs:
+        raise AssertionError(f"torch.profiler traced no launch of {kernel} ({pat.pattern})")
+    return sum(durs) / len(durs) / 1e3, len(durs)
 
 
 def _bound_ms(nbytes: float, ops: float):
@@ -171,20 +209,24 @@ def _profile(torch, fn, path: str, all_threads: bool = False) -> dict:
 def _check(torch, kernels, name, kernel, source, replaces, shape, run, run_plain, reps, preps,
            nbytes, ops, timed=None):
     """Bit equality of run() and run_plain() (lists of tensors), then both
-    timed; `timed` = (kernel, plain) callables to time instead.  Appends the
+    timed; `timed` = (kernel, plain) callables to time instead.  `ms` is the
+    kernel's device time per launch (torch.profiler), `call_ms` the CUDA-event
+    time of one wrapper call, `plain_ms` the plain version's.  Appends the
     kernel's record to `kernels`."""
     got, want = run(), run_plain()
     torch.cuda.synchronize()
     eq = all(_same(torch, a, b) for a, b in zip(got, want))
     err = 0 if eq else max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
     del got, want
-    ms = _time_ms(torch, (timed or (run, run_plain))[0], reps)
-    pms = _time_ms(torch, (timed or (run, run_plain))[1], preps)
+    fn, plain = timed or (run, run_plain)
+    ms, traced = _device_ms(torch, fn, reps, kernel)
+    cms = _time_ms(torch, fn, reps)
+    pms = _time_ms(torch, plain, preps)
     bms, by = _bound_ms(nbytes, ops)
     kernels.append(dict(
         name=name, kernel=kernel, route="cuda", source=source, replaces=replaces,
-        shape=shape, bit_equal=eq, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-        bound_by=by, library_ms=None,
+        shape=shape, bit_equal=eq, max_abs_err=err, ms=ms, call_ms=cms, plain_ms=pms,
+        bound_ms=bms, bound_by=by, library_ms=None, traced_launches=traced,
     ))
     torch.cuda.empty_cache()
 
@@ -263,18 +305,52 @@ def _k1_key(x, basis, rows, inverse=False):
     return bool(inverse), tuple(rows), tuple(x.shape)
 
 
-def _k4_rows(torch, C, rec, N, kernels):
+def _k4_check(torch, C, kernels, q, mu, sd, idx, b, logn, launch):
+    """K4 against its plain version on one draw's arguments; `launch` is the
+    wrapper to time."""
+    L, N = q.shape[0], 1 << logn
+    n_out = b * L * N
+    _check(torch, kernels, f"uniform_mod {[b, L, N]}", "uniform_mod",
+           "sfgwas_tpu_torch/csrc/crp.cu", "sfgwas_tpu/crypto/ckks.py:1251", [b, L, N],
+           lambda: [launch(q, mu, sd, idx, b, logn)],
+           lambda: [C.uniform_mod_plain(q, sd, idx, b, N)],
+           max(5, min(100, int(2e8 // (4 * n_out)))), 1,
+           4 * n_out, n_out * (2 * THREEFRY_OPS + BARRETT_OPS))
+
+
+def _k4_rows(torch, C, rec, basis, kernels) -> list:
     """K4 against its plain version at every (batch, rows) that `rec`
-    recorded, on the recorded arguments, each with its launches."""
+    recorded, on the recorded arguments, each with its launches; returns
+    the [batch, rows] of each."""
+    shapes = []
     for key, (q, mu, sd, idx, b, logn) in sorted(rec.args["uniform_mod"].items()):
-        n_out = b * q.shape[0] * N
-        _check(torch, kernels, f"uniform_mod {[b, q.shape[0], N]}", "uniform_mod",
-               "sfgwas_tpu_torch/csrc/crp.cu", "sfgwas_tpu/crypto/ckks.py:1251",
-               [b, q.shape[0], N], lambda: [rec.real["uniform_mod"](q, mu, sd, idx, b, logn)],
-               lambda: [C.uniform_mod_plain(q, sd, idx, b, N)],
-               max(5, min(100, int(2e8 // (4 * n_out)))), 1,
-               4 * n_out, n_out * (2 * THREEFRY_OPS + BARRETT_OPS))
+        _k4_check(torch, C, kernels, q, mu, sd, idx, b, logn, rec.real["uniform_mod"])
         kernels[-1]["launches_at_shape"] = rec.counts[("uniform_mod", key)]
+        shapes.append([b, [basis.primes.index(int(v)) for v in q.view(-1).tolist()]])
+    return shapes
+
+
+def _bs_mask_call(PM, tl, tf, sd, idx, b, nwords, top, logn):
+    """The tree's bs_mask on the tables tl, tf of _bs_tables (a tree from
+    before the 32-bit fold takes the tables' entries one by one)."""
+    if "tl" in inspect.signature(PM.bs_mask).parameters:
+        return PM.bs_mask(tl, tf, sd, idx, b, nwords, top, logn)
+    return PM.bs_mask(tl["pw"], tf["pw"], tl["q"], tf["q"], tl["mu"], tf["mu"], sd, idx, b,
+                      nwords, top, logn)
+
+
+def _bs_mask_check(torch, PM, kernels, tl, tf, sd, idx, b, nwords, top, logn, launch):
+    """bs_mask against its plain version; `launch` is the wrapper to time."""
+    L, Lf, N = tl["q"].shape[0], tf["q"].shape[0], 1 << logn
+    cols = b * N
+    nbytes = 4 * (L + Lf) * cols
+    _check(torch, kernels, f"bs_mask {[nwords, b, L, Lf, N]}", "bs_mask",
+           "sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:601",
+           [nwords, b, L, Lf, N], lambda: list(launch(tl, tf, sd, idx, b, nwords, top, logn)),
+           lambda: list(PM.bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], sd, idx, b,
+                                         nwords, top, N)),
+           max(5, min(100, int(2e8 // (nbytes + 1)))), 1, nbytes,
+           cols * (nwords * (THREEFRY_OPS + 2) + (L + Lf) * (2 * nwords + BARRETT_OPS)))
 
 
 def _smi():
@@ -284,27 +360,70 @@ def _smi():
     ).stdout.strip().splitlines()[0]
 
 
-def k1_only(torch, root: str, shapes_path: str) -> int:
-    """Time K1 of the package under `root` at the shapes in `shapes_path`."""
+def _sass(cuda_build, names, out_dir: str, tag: str) -> dict:
+    """Static SASS of the current build of each named source (cuobjdump
+    -sass): per kernel its instruction count and the count of each opcode
+    (modifiers dropped, NOP padding left out); the listing goes to
+    out_dir/sass_<tag>_<name>.txt."""
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    out: dict = {}
+    os.makedirs(out_dir, exist_ok=True)
+    for name in names:
+        text = subprocess.run([tool, "-sass", str(cuda_build._target(name))], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        with open(os.path.join(out_dir, f"sass_{tag}_{name}.txt"), "w") as f:
+            f.write(text)
+        fn = None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                out[fn] = {"instructions": 0, "ops": collections.Counter()}
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m and fn and m.group(1) != "NOP":
+                out[fn]["instructions"] += 1
+                out[fn]["ops"][m.group(1)] += 1
+    return out
+
+
+def tree_only(torch, root: str, shapes_path: str) -> int:
+    """Time K1, K4 and bs_mask of the package under `root` at the shapes of
+    a shapes.json, each against its plain version, and count the SASS of K4
+    and K5; prints one JSON line."""
     sys.path.insert(0, os.path.abspath(root))
+    from sfgwas_tpu_torch.crypto import ckks as C
     from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.mpc import mhe as PM
     from sfgwas_tpu_torch.ops import cuda_build, cuda_ntt, rns
 
     smi = _smi()
     _say(smi)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    cuda_build.build(["ntt"])
+    cuda_build.build(["ntt", "crp", "bs_share"])
     with open(shapes_path) as f:
-        rec = json.load(f)
+        shapes = json.load(f)
+    params = get_params(shapes["preset"])
     kernels: list = []
-    total = _k1_rows(torch, cuda_ntt, rns, get_params(rec["preset"]).basis, rec["shapes"], dev,
-                     kernels)
+    total = _k1_rows(torch, cuda_ntt, rns, params.basis, shapes["k1"], dev, kernels)
+    ctx = C.CkksContext(params, device=dev)
+    for i, (b, rows) in enumerate(shapes["uniform_mod"]):
+        rows = tuple(rows)
+        _k4_check(torch, C, kernels, ctx._t(rows)["q"], rns.barrett_mu64(params.basis, rows, dev),
+                  (i + 1, 2), i, b, params.logn, C.uniform_mod)
+    for i, (b, rows, tgt, nwords, top) in enumerate(shapes["bs_mask"]):
+        tl, tf = PM._bs_tables(ctx, tuple(rows), nwords), PM._bs_tables(ctx, tuple(tgt), nwords)
+        _bs_mask_check(torch, PM, kernels, tl, tf, (i + 3, 4), i, b, nwords, top, params.logn,
+                       lambda *a: _bs_mask_call(PM, *a))
+    tag = os.path.basename(os.path.abspath(root))
+    sass = _sass(cuda_build, ("crp", "bs_share"),
+                 os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out"), tag)
     bad = [k["name"] for k in kernels if not k["bit_equal"]]
-    _say(json.dumps({"k1_tree": os.path.abspath(root), "card": smi, "k1_total_ms": total,
-                     "kernels": kernels}))
+    _say(json.dumps({"tree": os.path.abspath(root), "card": smi, "k1_total_ms": total,
+                     "sass": sass, "kernels": kernels}))
     if bad:
-        raise AssertionError(f"K1 differs from its plain version: {bad}")
+        raise AssertionError(f"kernels differ from their plain versions: {bad}")
     return 0
 
 
@@ -337,7 +456,9 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     rec = _Recorder()
     rec.wrap(cuda_ntt, "ntt_b_kernel", "k1", _k1_key)
     rec.wrap(C, "uniform_mod", "uniform_mod", lambda q, mu, sd, idx, b, logn: (b, q.shape[0]))
-    rec.wrap(PM, "bs_mask", "bs_mask", lambda *a: (a[8], a[0].shape[0], a[1].shape[0], a[9]))
+    rec.wrap(PM, "bs_mask", "bs_mask",
+             lambda tl, tf, sd, idx, b, nwords, top, logn: (b, tl["q"].shape[0],
+                                                            tf["q"].shape[0], nwords))
     rec.wrap(PM, "bs_combine", "bs_combine", lambda *a: tuple(a[0].shape) + (a[1].shape[1],))
     rec.wrap(rns, "crt_lift", "crt_lift", lambda x, t: (tuple(x.shape), t["p"].shape[0]))
     real, counts = rec.real, rec.counts
@@ -458,8 +579,7 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
 
     # K4, K5 and K6 at every recorded shape
     N = params.n
-    src = {"bs_mask": ("sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:601"),
-           "bs_combine": ("sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:636"),
+    src = {"bs_combine": ("sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:636"),
            "crt_lift": ("sfgwas_tpu_torch/csrc/crt_lift.cu", "sfgwas_tpu/ops/rns.py:540")}
 
     def check(name, key, shape, run, run_plain, nbytes, ops):
@@ -471,18 +591,17 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         kernels[-1]["path"] = "mhe"
 
     first = len(kernels)
-    _k4_rows(torch, C, rec, N, kernels)
+    k4_shapes = _k4_rows(torch, C, rec, params.basis, kernels)
     for k in kernels[first:]:
         k["launches"], k["path"] = launches["uniform_mod"], "mhe"
+    bs_shapes = []
     for key, a in sorted(rec.args["bs_mask"].items()):
-        pw_l, pw_f, q_l, q_f, mu_l, mu_f, sd, idx, b, nwords, top, logn = a
-        L, Lf = q_l.shape[0], q_f.shape[0]
-        cols = b * N
-        check("bs_mask", key, [nwords, b, L, Lf, N],
-              lambda: list(real["bs_mask"](*a)),
-              lambda: list(PM.bs_mask_plain(pw_l, pw_f, q_l, q_f, sd, idx, b, nwords, top, N)),
-              4 * (L + Lf) * cols,
-              cols * (nwords * (THREEFRY_OPS + 2) + (L + Lf) * (2 * nwords + BARRETT_OPS)))
+        tl, tf, sd, idx, b, nwords, top, logn = a
+        _bs_mask_check(torch, PM, kernels, tl, tf, sd, idx, b, nwords, top, logn,
+                       real["bs_mask"])
+        kernels[-1].update(launches=launches["bs_mask"], path="mhe",
+                           launches_at_shape=counts[("bs_mask", key)])
+        bs_shapes.append([b, tl["rows"].tolist(), tf["rows"].tolist(), nwords, top])
     for key, a in sorted(rec.args["bs_combine"].items()):
         b, L, _, Lf = key
         check("bs_combine", key, [b, L, Lf, N],
@@ -501,26 +620,27 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         "parties_out": {str(p): {k: v for k, v in res[p].items() if k != "setup"} for p in (1, 2)},
         "launches": launches, "profile": profiled, "k1_total_ms": k1_total,
         "shapes": {name: [list(k) for k in r] for name, r in rec.args.items()},
-        "k1_shapes": k1_shapes,
+        "k1_shapes": k1_shapes, "tree_shapes": {"uniform_mod": k4_shapes, "bs_mask": bs_shapes},
     }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--k1-only", metavar="DIR", help="time only K1 of the package under DIR")
-    ap.add_argument("--k1-shapes", metavar="FILE", help="K1's shapes (a k1_shapes.json)")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="time only K1, K4 and bs_mask of the package under DIR")
+    ap.add_argument("--shapes", metavar="FILE", help="their shapes (a full run's shapes.json)")
     args = ap.parse_args()
-    if bool(args.k1_only) != bool(args.k1_shapes):
-        ap.error("--k1-only and --k1-shapes go together")
+    if bool(args.tree) != bool(args.shapes):
+        ap.error("--tree and --shapes go together")
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if args.k1_only:
-        return k1_only(torch, args.k1_only, args.k1_shapes)
+    if args.tree:
+        return tree_only(torch, args.tree, args.shapes)
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "chiprun_out")
     sys.path.insert(0, root)
@@ -642,9 +762,6 @@ def main() -> int:
     for sym, inv in (("ntt_fwd", False), ("ntt_inv", True)):
         if sum(n for i, _, _, n in k1_shapes if i == inv) != per_call[sym]:
             raise AssertionError(f"K1 shapes recorded {k1_shapes} miss launches of {sym}")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "k1_shapes.json"), "w") as f:
-        json.dump({"preset": "PN14QP438", "shapes": k1_shapes}, f)
     # the stages of one call, each ended by a device synchronize
     prof.ENABLED, prof.SYNC = True, torch.cuda.synchronize
     prof.reset()
@@ -690,7 +807,7 @@ def main() -> int:
     _say(f"K1 over one mat_mult_cached: {k1_total:.4f} ms (sum of launches x ms), "
          f"profiler {profiled['k1_ms']:.4f} ms")
     # K4 at the rotation keygen's draws
-    _k4_rows(torch, C, k4_rec, N, kernels)
+    k4_shapes = _k4_rows(torch, C, k4_rec, params.basis, kernels)
     del k4_rec
     plan = MM._plan_for(cps, cache, nmod, row_batch=ncols)
     gi = plan.giant_index(ctx)
@@ -766,10 +883,22 @@ def main() -> int:
 
     # ---- 6. the MHE collective layer
     mhe = mhe_phase(torch, args.seed, out_dir, kernels)
+    # the shapes --tree times: K1's of one product, K4's of both paths,
+    # bs_mask's of the MHE phase
+    shapes = mhe.pop("tree_shapes")
+    k4_shapes += [s for s in shapes["uniform_mod"] if s not in k4_shapes]
+    shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes,
+              "bs_mask": shapes["bs_mask"]}
+    with open(os.path.join(out_dir, "shapes.json"), "w") as f:
+        json.dump(shapes, f)
+    sass = _sass(cuda_build, ("crp", "bs_share"), out_dir, "main")
+    for fn, v in sass.items():
+        _say(f"sass {fn[:60]}: {v['instructions']} instructions, {json.dumps(v['ops'])}")
 
     _say("kernel checks: " + ", ".join(
-        f"{k['name']} equal={k['bit_equal']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
-        f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})" for k in kernels))
+        f"{k['name']} equal={k['bit_equal']} {k['ms']:.4f} ms on the device (call "
+        f"{k['call_ms']:.4f} ms, plain {k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms by "
+        f"{k['bound_by']})" for k in kernels))
     bad = [k["name"] for k in kernels if not k["bit_equal"]]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: {bad}")
@@ -780,6 +909,7 @@ def main() -> int:
         "max_sm_clock_mhz": max_sm_mhz,
         "sm_count": torch.cuda.get_device_properties(0).multi_processor_count,
         "ptxas": ptxas,
+        "sass": sass,
         "main_path": {
             "preset": "PN14QP438", "block": [n_ind, n_snp], "columns": ncols,
             "diagonals": k_total, "nmod": nmod, "rotation_keys": len(gels),

@@ -180,7 +180,7 @@ def uniform_mod_plain(q, seed, idx: int, batch: int, n: int):
 def uniform_mod(q, mu, seed, idx: int, batch: int, logn: int):
     """Kernel K4 for a CUDA q (the plain version for a CPU q): q [L, 1]
     int32 and mu [L] int64 (rns.barrett_mu64) of the rows; seed = (lo, hi)
-    32-bit words, idx the draw's index."""
+    32-bit words, idx the draw's index; the kernel takes logn 2..20."""
     n = 1 << logn
     if q.device.type == "cpu":
         return uniform_mod_plain(q, seed, idx, batch, n)

@@ -8,24 +8,44 @@
 // (b, coefficient) it draws the nwords threefry words of
 // jax.random.bits(key, (nwords, B, N)) (word k at counter (k*B + b)*N + n),
 // keeps 24 bits of each, masks the top word to top_bits and centres it
-// (subtracts 2^(top_bits-1)), so the mask is the signed integer
-//   v = sum_k w_k 2^(24k),  |v| < 2^(24(nwords-1) + top_bits - 1).
+// (subtracts h = 2^(top_bits-1)), so the mask is the signed integer
+//   v = sum_k w_k 2^(24k) - h 2^(24(nwords-1)),  |v| < 2^(24(nwords-1) + top_bits - 1).
 // It writes v mod q for every row of `rows` ([L, B, N]) and of `tgt_rows`
-// ([Lf, B, N]) in the coefficient domain: sum_k w_k (2^(24k) mod q) with the
-// negative top word taken as w + q, summed exactly in 64 bits (each term
-// < 2^50) and reduced once with a Barrett step.
+// ([Lf, B, N]) in the coefficient domain, from the weights p_k = 2^(24k) mod q:
+// the top word is folded unsigned, and the centring is the row's constant
+// -h p_top mod q, exact for any q.
 //
 // bs_combine (:630-647): with the masks in the NTT domain,
 //   h1[b, r] = c1[b, r] * s[rows[r]] + e1[r, b] + mask_l[r, b]          mod q_r
 //   h2[b, r] = -crp[b, r] * s[tgt_rows[r]] + e2[r, b] - mask_f[r, b]    mod q_r
 // in one pass over both outputs.
 //
-// What bounds them on the H100: bs_mask by its hashes (nwords Threefry-2x32
-// calls of about 80 integer instructions per coefficient against
-// 4 (L + Lf) written bytes), bs_combine by bytes (it reads 4 and writes one
-// residue per output).  The design is the plain one: one thread per
-// (b, coefficient) in bs_mask, whose words sit in shared memory (each thread
-// reads only its own), and one thread per output residue in bs_combine.
+// What bounds them on the H100: bs_mask by issued integer instructions
+// (nwords Threefry-2x32 words of 73 instructions per coefficient, then a
+// fold per row, against 4 (L + Lf) written bytes), bs_combine by bytes (it
+// reads 3 streamed inputs and writes one residue per output).
+//
+// bs_mask's first design kept each thread's words in shared memory that only
+// it read, and folded every row through a loop over a runtime word count and
+// a 64-bit Barrett step.  This design, for nwords 1..4 (PN14 draws 3) when
+// every prime lies in (2^24, 2^28):
+//  * keeps the words in registers (a template over nwords);
+//  * gives a thread 4 consecutive coefficients of one b, whose nwords * 4
+//    hashes run together (threefry.cuh), with one 16-byte store per row; b
+//    is the grid's y index, so the counters' high words and the row
+//    constants are the block's;
+//  * folds each word (a residue: below 2^24 < q) by a Shoup multiply with
+//    p_k and its quotient ps_k = floor(p_k 2^32 / q) into [0, 2q), adds the
+//    row's centring constant in (0, 2q], and reduces the sum (below
+//    2q (nwords + 1) <= 10q < 2^32) with one 32-bit Barrett step
+//    (m = floor(2^32 / q), the high word of mu) and a conditional subtract.
+// In SASS (cuobjdump, nwords 3) the hashes take about 70 instructions a
+// word and the row loop 102 for 4 coefficients, 74 of them IMAD: from about
+// a dozen rows on, the folds' multiplies on the FMA pipe outweigh the
+// hashes' rotates and xors on the ALU pipe.
+// Other word counts and primes take the generic kernel, for up to MAX_WORDS
+// words: the words in shared memory, each word's Shoup term reduced and
+// added in turn, the sum kept below q (exact for any q < 2^31).
 
 #include "common.cuh"
 #include "threefry.cuh"
@@ -33,44 +53,118 @@
 namespace {
 
 constexpr int MASK_THREADS = 128;
+constexpr int MASK_VEC = 4;     // coefficients a thread in bs_mask_kernel
 constexpr int MAX_WORDS = 96;  // 96 * 128 * 4 = 48 KB of shared memory, no opt-in
 constexpr int THREADS = 256;
 
+// 2q - (h p mod q up to one q), in (0, 2q]: -h p mod q, offset by a multiple of q
+__device__ __forceinline__ uint32_t centring(uint32_t h, uint32_t p, uint32_t ps, uint32_t q) {
+    return 2 * q - shoup_lazy(h, p, ps, q);
+}
+
+template <int K>
+__device__ __forceinline__ void fold_rows_v(uint32_t* __restrict__ out,
+                                            const uint32_t* __restrict__ pw,
+                                            const uint32_t* __restrict__ ps,
+                                            const uint32_t* __restrict__ qv,
+                                            const uint64_t* __restrict__ muv,
+                                            const uint32_t (&w)[K * MASK_VEC], uint32_t h,
+                                            int rows, size_t row_stride) {
+    for (int r = 0; r < rows; ++r) {
+        const uint32_t q = __ldg(qv + r), m = (uint32_t)(__ldg(muv + r) >> 32);
+        uint32_t p[K], s[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            p[k] = __ldg(pw + r * K + k);
+            s[k] = __ldg(ps + r * K + k);
+        }
+        const uint32_t c = centring(h, p[K - 1], s[K - 1], q);
+        uint32_t o[MASK_VEC];
+#pragma unroll
+        for (int v = 0; v < MASK_VEC; ++v) {
+            uint32_t acc = c;
+#pragma unroll
+            for (int k = 0; k < K; ++k) acc += shoup_lazy(w[k * MASK_VEC + v], p[k], s[k], q);
+            o[v] = sub_if_ge(barrett32_lazy(acc, m, q), q);
+        }
+        *reinterpret_cast<uint4*>(out + r * row_stride) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+}
+
+template <int K>
+__global__ void __launch_bounds__(MASK_THREADS)
+bs_mask_kernel(uint32_t* __restrict__ out_l, uint32_t* __restrict__ out_f,
+               const uint32_t* __restrict__ pw_l, const uint32_t* __restrict__ pw_f,
+               const uint32_t* __restrict__ ps_l, const uint32_t* __restrict__ ps_f,
+               const uint32_t* __restrict__ q_l, const uint32_t* __restrict__ q_f,
+               const uint64_t* __restrict__ mu_l, const uint64_t* __restrict__ mu_f,
+               const TfKey key, const int B, const int top_bits, const int L, const int Lf,
+               const int logn) {
+    const uint32_t n0 = (blockIdx.x * MASK_THREADS + threadIdx.x) * MASK_VEC;
+    if (n0 >> logn) return;
+    const size_t cols = (size_t)B << logn;
+    const uint32_t h = 1u << (top_bits - 1);
+    for (int b = blockIdx.y; b < B; b += gridDim.y) {
+        // counter (k*B + b)*N + n: the base is a multiple of N, n < N, so the
+        // low word never carries
+        uint32_t x0[K * MASK_VEC], x1[K * MASK_VEC];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const uint64_t base = (uint64_t)k * cols + ((uint64_t)b << logn);
+#pragma unroll
+            for (int v = 0; v < MASK_VEC; ++v) {
+                x0[k * MASK_VEC + v] = (uint32_t)(base >> 32);
+                x1[k * MASK_VEC + v] = (uint32_t)base + n0 + v;
+            }
+        }
+        tf_bits_v(key, x0, x1);
+#pragma unroll
+        for (int i = 0; i < K * MASK_VEC; ++i)
+            x0[i] &= i < (K - 1) * MASK_VEC ? 0xFFFFFFu : (1u << top_bits) - 1;
+        const size_t off = ((size_t)b << logn) + n0;
+        fold_rows_v<K>(out_l + off, pw_l, ps_l, q_l, mu_l, x0, h, L, cols);
+        fold_rows_v<K>(out_f + off, pw_f, ps_f, q_f, mu_f, x0, h, Lf, cols);
+    }
+}
+
 __device__ __forceinline__ void fold_rows(uint32_t* __restrict__ out,
                                           const uint32_t* __restrict__ pw,
-                                          const uint32_t* __restrict__ qv,
-                                          const uint64_t* __restrict__ muv, const int* w,
-                                          int nwords, int rows, size_t row_stride) {
+                                          const uint32_t* __restrict__ ps,
+                                          const uint32_t* __restrict__ qv, const uint32_t* w,
+                                          uint32_t h, int nwords, int rows, size_t row_stride) {
     for (int r = 0; r < rows; ++r) {
-        const uint32_t q = qv[r];
+        const uint32_t q = __ldg(qv + r);
         const uint32_t* p = pw + (size_t)r * nwords;
-        uint64_t acc = 0;
-        for (int k = 0; k < nwords - 1; ++k)
-            acc += (uint64_t)(uint32_t)w[k * MASK_THREADS] * __ldg(p + k);
-        const int top = w[(nwords - 1) * MASK_THREADS];
-        acc += (uint64_t)(top < 0 ? (uint32_t)(top + (int)q) : (uint32_t)top) * __ldg(p + nwords - 1);
-        out[r * row_stride] = barrett64(acc, muv[r], q);
+        const uint32_t* s = ps + (size_t)r * nwords;
+        // -h p_top mod q, then one word's term at a time, the sum kept below q
+        const int t = nwords - 1;
+        uint32_t acc = sub_if_ge(q - sub_if_ge(shoup_lazy(h, __ldg(p + t), __ldg(s + t), q), q), q);
+        for (int k = 0; k < nwords; ++k) {
+            const uint32_t v = shoup_lazy(w[k * MASK_THREADS], __ldg(p + k), __ldg(s + k), q);
+            acc = sub_if_ge(acc + sub_if_ge(v, q), q);
+        }
+        out[r * row_stride] = acc;
     }
 }
 
 __global__ void __launch_bounds__(MASK_THREADS)
-bs_mask_kernel(uint32_t* __restrict__ out_l, uint32_t* __restrict__ out_f,
-               const uint32_t* __restrict__ pw_l, const uint32_t* __restrict__ pw_f,
-               const uint32_t* __restrict__ q_l, const uint32_t* __restrict__ q_f,
-               const uint64_t* __restrict__ mu_l, const uint64_t* __restrict__ mu_f,
-               const TfKey key, const int B, const int nwords, const int top_bits, const int L,
-               const int Lf, const int logn) {
-    extern __shared__ int ws[];  // [nwords][MASK_THREADS]
+bs_mask_generic_kernel(uint32_t* __restrict__ out_l, uint32_t* __restrict__ out_f,
+                       const uint32_t* __restrict__ pw_l, const uint32_t* __restrict__ pw_f,
+                       const uint32_t* __restrict__ ps_l, const uint32_t* __restrict__ ps_f,
+                       const uint32_t* __restrict__ q_l, const uint32_t* __restrict__ q_f,
+                       const TfKey key, const int B, const int nwords, const int top_bits,
+                       const int L, const int Lf, const int logn) {
+    extern __shared__ uint32_t ws[];  // [nwords][MASK_THREADS]
     const size_t cols = (size_t)B << logn;
     const size_t t = (size_t)blockIdx.x * MASK_THREADS + threadIdx.x;
     if (t >= cols) return;
-    int* w = ws + threadIdx.x;
+    uint32_t* w = ws + threadIdx.x;
     for (int k = 0; k < nwords; ++k)
-        w[k * MASK_THREADS] = (int)(tf_bits(key, (uint64_t)k * cols + t) & 0xFFFFFFu);
-    const int top = w[(nwords - 1) * MASK_THREADS] & ((1 << top_bits) - 1);
-    w[(nwords - 1) * MASK_THREADS] = top - (1 << (top_bits - 1));
-    fold_rows(out_l + t, pw_l, q_l, mu_l, w, nwords, L, cols);
-    fold_rows(out_f + t, pw_f, q_f, mu_f, w, nwords, Lf, cols);
+        w[k * MASK_THREADS] = tf_bits(key, (uint64_t)k * cols + t) & 0xFFFFFFu;
+    w[(nwords - 1) * MASK_THREADS] &= (1u << top_bits) - 1;
+    const uint32_t h = 1u << (top_bits - 1);
+    fold_rows(out_l + t, pw_l, ps_l, q_l, w, h, nwords, L, cols);
+    fold_rows(out_f + t, pw_f, ps_f, q_f, w, h, nwords, Lf, cols);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -115,24 +209,40 @@ const char* csrc_error_string(int e) { return cudaGetErrorString((cudaError_t)e)
 
 int bs_max_words() { return MAX_WORDS; }
 
-// out_l [L, B, N], out_f [Lf, B, N] (coefficient domain); pw_* [rows, nwords]
-// = 2^(24k) mod q; q_* [rows] uint32, mu_* [rows] uint64
-int bs_mask(void* out_l, void* out_f, const void* pw_l, const void* pw_f, const void* q_l,
-            const void* q_f, const void* mu_l, const void* mu_f, unsigned seed_lo,
-            unsigned seed_hi, unsigned idx, int B, int nwords, int top_bits, int L, int Lf,
-            int logn, void* stream) {
+// out_l [L, B, N], out_f [Lf, B, N] (coefficient domain, 16-byte aligned);
+// pw_* [rows, nwords] = 2^(24k) mod q and ps_* their Shoup quotients
+// floor(pw 2^32 / q); q_* [rows] uint32 (< 2^31), mu_* [rows] uint64.
+// fast != 0 says every prime of both row sets lies in (2^24, 2^28): then
+// nwords 1..4 take bs_mask_kernel, all else the generic kernel (which reads
+// no mu).
+int bs_mask(void* out_l, void* out_f, const void* pw_l, const void* pw_f, const void* ps_l,
+            const void* ps_f, const void* q_l, const void* q_f, const void* mu_l,
+            const void* mu_f, unsigned seed_lo, unsigned seed_hi, unsigned idx, int B,
+            int nwords, int top_bits, int L, int Lf, int logn, int fast, void* stream) {
     if (B < 1 || nwords < 1 || nwords > MAX_WORDS || top_bits < 1 || top_bits > 24 || L < 0 ||
-        Lf < 0 || logn < 1 || logn > 20)
+        Lf < 0 || logn < 1 || logn > 20 || (uintptr_t)out_l % 16 || (uintptr_t)out_f % 16)
         return (int)cudaErrorInvalidValue;
     const size_t cols = (size_t)B << logn;
     if ((cols + MASK_THREADS - 1) / MASK_THREADS > 0x7fffffffu) return (int)cudaErrorInvalidValue;
     const TfKey key = tf_derive_key(seed_lo, seed_hi, idx);
-    const size_t smem = (size_t)nwords * MASK_THREADS * sizeof(int);
-    bs_mask_kernel<<<(unsigned)((cols + MASK_THREADS - 1) / MASK_THREADS), MASK_THREADS, smem,
-                     (cudaStream_t)stream>>>(
-        (uint32_t*)out_l, (uint32_t*)out_f, (const uint32_t*)pw_l, (const uint32_t*)pw_f,
-        (const uint32_t*)q_l, (const uint32_t*)q_f, (const uint64_t*)mu_l, (const uint64_t*)mu_f,
-        key, B, nwords, top_bits, L, Lf, logn);
+    if (fast && nwords <= 4 && logn >= 2) {
+        decltype(&bs_mask_kernel<1>) const kernels[4] = {bs_mask_kernel<1>, bs_mask_kernel<2>,
+                                                         bs_mask_kernel<3>, bs_mask_kernel<4>};
+        const dim3 grid((((1u << logn) + MASK_THREADS * MASK_VEC - 1) / (MASK_THREADS * MASK_VEC)),
+                        (unsigned)(B < 65535 ? B : 65535));
+        kernels[nwords - 1]<<<grid, MASK_THREADS, 0, (cudaStream_t)stream>>>(
+            (uint32_t*)out_l, (uint32_t*)out_f, (const uint32_t*)pw_l, (const uint32_t*)pw_f,
+            (const uint32_t*)ps_l, (const uint32_t*)ps_f, (const uint32_t*)q_l,
+            (const uint32_t*)q_f, (const uint64_t*)mu_l, (const uint64_t*)mu_f, key, B, top_bits,
+            L, Lf, logn);
+    } else {
+        const size_t smem = (size_t)nwords * MASK_THREADS * sizeof(uint32_t);
+        bs_mask_generic_kernel<<<(unsigned)((cols + MASK_THREADS - 1) / MASK_THREADS),
+                                 MASK_THREADS, smem, (cudaStream_t)stream>>>(
+            (uint32_t*)out_l, (uint32_t*)out_f, (const uint32_t*)pw_l, (const uint32_t*)pw_f,
+            (const uint32_t*)ps_l, (const uint32_t*)ps_f, (const uint32_t*)q_l,
+            (const uint32_t*)q_f, key, B, nwords, top_bits, L, Lf, logn);
+    }
     return (int)cudaGetLastError();
 }
 

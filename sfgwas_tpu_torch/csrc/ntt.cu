@@ -115,11 +115,6 @@ __device__ __forceinline__ constexpr int soff(int e) {
         return (e << LO) + (e >> (5 - LO));
 }
 
-// a * w mod q, lazily: in [0, 2q) for any a < 2^32 (ws = floor(w 2^32 / q))
-__device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w, uint32_t ws, uint32_t q) {
-    return a * w - __umulhi(a, ws) * q;
-}
-
 template <int CH>
 __device__ __forceinline__ void load_words(const uint32_t* __restrict__ p, uint32_t (&v)[CH]) {
     if constexpr (CH == 4) {

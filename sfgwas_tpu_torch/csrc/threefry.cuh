@@ -8,6 +8,14 @@
 //
 // Everything here has internal linkage; the key derivation is also host
 // code, so a launcher derives the key once and hands it to its kernel.
+//
+// tf_bits_v is the kernels' form of the hash: V independent counters per
+// thread, hashed round by round together, so that V dependency chains are in
+// flight at once and the key schedule is read once.  A round is an add, a
+// rotate and a xor: the rotate (SHF) and the xor (LOP3) run on the integer
+// ALU pipe, and ptxas already issues most adds as IMAD on the FMA pipe
+// beside them.  Forcing every add onto IMAD (a multiply-add by a kernel
+// argument of 1) was measured and gained nothing (PERF.md).
 
 #pragma once
 
@@ -59,6 +67,38 @@ __device__ __forceinline__ uint32_t tf_bits(TfKey key, uint64_t c) {
     uint32_t x0 = (uint32_t)(c >> 32), x1 = (uint32_t)c;
     threefry2x32(key.k0, key.k1, x0, x1);
     return x0 ^ x1;
+}
+
+// V words of jax.random.bits at once: on entry (x0[v], x1[v]) are the high
+// and low halves of counter v, on return x0[v] is its word
+template <int V>
+__device__ __forceinline__ void tf_bits_v(const TfKey key, uint32_t (&x0)[V], uint32_t (&x1)[V]) {
+    const uint32_t ks[3] = {key.k0, key.k1, key.k0 ^ key.k1 ^ 0x1BD11BDAu};
+    const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+        x0[v] += ks[0];
+        x1[v] += ks[1];
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                x0[v] += x1[v];
+                x1[v] = __funnelshift_l(x1[v], x1[v], rot[i & 1][j]) ^ x0[v];
+            }
+        }
+        const uint32_t a = ks[(i + 1) % 3], b = ks[(i + 2) % 3] + (uint32_t)(i + 1);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            x0[v] += a;
+            x1[v] += b;
+        }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) x0[v] ^= x1[v];
 }
 
 }  // namespace

@@ -405,7 +405,7 @@ def collective_decrypt_many(net: Network, cps: CryptoParams, cts, source_pid: in
 # Kernel K5: a party's bootstrap share
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-BS_MASK = CudaKernel("bs_share", "bs_mask", [_P] * 8 + [_U] * 3 + [_I] * 6)
+BS_MASK = CudaKernel("bs_share", "bs_mask", [_P] * 10 + [_U] * 3 + [_I] * 7)
 BS_COMBINE = CudaKernel("bs_share", "bs_combine", [_P] * 15 + [_I] * 4)
 BS_MAX_WORDS = 96  # MAX_WORDS in csrc/bs_share.cu
 _W24 = (1 << 24) - 1
@@ -441,31 +441,30 @@ def bs_mask_plain(pw_l, pw_f, q_l, q_f, seed, idx: int, B: int, nwords: int, top
     return _fold_words(w, pw_l, q_l), _fold_words(w, pw_f, q_f)
 
 
-def bs_mask(pw_l, pw_f, q_l, q_f, mu_l, mu_f, seed, idx: int, B: int, nwords: int,
-            top_bits: int, logn: int):
-    """K5's bs_mask for CUDA tables (the plain version for CPU ones): q_*
-    [rows, 1] int32, mu_* [rows] int64 (rns.barrett_mu64), pw_* [rows,
-    nwords] int32."""
+def bs_mask(tl, tf, seed, idx: int, B: int, nwords: int, top_bits: int, logn: int):
+    """K5's bs_mask for CUDA tables (the plain version for CPU ones): tl, tf
+    are the _bs_tables of the two row sets."""
     n = 1 << logn
-    if q_l.device.type == "cpu":
-        return bs_mask_plain(pw_l, pw_f, q_l, q_f, seed, idx, B, nwords, top_bits, n)
+    if tl["q"].device.type == "cpu":
+        return bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], seed, idx, B, nwords,
+                             top_bits, n)
     if not 1 <= nwords <= BS_MAX_WORDS or not 1 <= top_bits <= 24:
         raise ValueError(f"bs_mask: {nwords} words of top {top_bits} bits; the kernel "
                          f"takes 1..{BS_MAX_WORDS} words and 1..24 bits")
-    dev = q_l.device
-    L, Lf = q_l.shape[0], q_f.shape[0]
-    for name, t, rows in (("pw_l", pw_l, L), ("pw_f", pw_f, Lf)):
-        check(t, name, dev, (rows, nwords))
-    check(q_l, "q_l", dev, (L, 1))
-    check(q_f, "q_f", dev, (Lf, 1))
-    check(mu_l, "mu_l", dev, (L,), torch.int64)
-    check(mu_f, "mu_f", dev, (Lf,), torch.int64)
+    dev = tl["q"].device
+    L, Lf = tl["q"].shape[0], tf["q"].shape[0]
+    for side, t, rows in (("l", tl, L), ("f", tf, Lf)):
+        check(t["pw"], f"pw_{side}", dev, (rows, nwords))
+        check(t["ps"], f"ps_{side}", dev, (rows, nwords))
+        check(t["q"], f"q_{side}", dev, (rows, 1))
+        check(t["mu"], f"mu_{side}", dev, (rows,), torch.int64)
     out_l = torch.empty((L, B, n), dtype=torch.int32, device=dev)
     out_f = torch.empty((Lf, B, n), dtype=torch.int32, device=dev)
     BS_MASK.launch(
-        dev, ptr(out_l), ptr(out_f), ptr(pw_l), ptr(pw_f), ptr(q_l), ptr(q_f), ptr(mu_l),
-        ptr(mu_f), int(seed[0]) & threefry.MASK, int(seed[1]) & threefry.MASK,
-        int(idx) & threefry.MASK, B, nwords, top_bits, L, Lf, logn,
+        dev, ptr(out_l), ptr(out_f), ptr(tl["pw"]), ptr(tf["pw"]), ptr(tl["ps"]), ptr(tf["ps"]),
+        ptr(tl["q"]), ptr(tf["q"]), ptr(tl["mu"]), ptr(tf["mu"]), int(seed[0]) & threefry.MASK,
+        int(seed[1]) & threefry.MASK, int(idx) & threefry.MASK, B, nwords, top_bits, L, Lf, logn,
+        int(tl["fast"] and tf["fast"]),
     )
     return out_l, out_f
 
@@ -521,19 +520,23 @@ def bs_combine(c1s, crp, sk, rows_l, rows_f, e1, mask_l, e2, mask_f, q_l, q_f, m
 
 
 def _bs_tables(ctx: C.CkksContext, rows, nwords: int):
-    """Per row set: q [L, 1], mu [L], the row indices [L] int32 and the word
-    weights 2^(24k) mod q [L, nwords], cached on ctx."""
+    """Per row set: q [L, 1], mu [L], the row indices [L] int32, the word
+    weights pw = 2^(24k) mod q [L, nwords] and their Shoup quotients ps =
+    floor(pw 2^32 / q), and `fast`: every prime lies in (2^24, 2^28), the
+    primes bs_mask's register kernel takes (csrc/bs_share.cu); cached on
+    ctx."""
     key = ("bs", tuple(rows), nwords)
     if key not in ctx._const_cache:
-        pw = np.array(
-            [[pow(1 << (24 * k), 1, ctx.basis.primes[r]) for k in range(nwords)] for r in rows],
-            np.uint32,
-        )
+        primes = [ctx.basis.primes[r] for r in rows]
+        pw = [[pow(1 << (24 * k), 1, q) for k in range(nwords)] for q in primes]
+        ps = [[(w << 32) // q for w in ws] for ws, q in zip(pw, primes)]
         ctx._const_cache[key] = {
             "q": ctx._t(rows)["q"],
             "mu": rns.barrett_mu64(ctx.basis, tuple(rows), ctx.device),
             "rows": torch.tensor(rows, dtype=torch.int32, device=ctx.device),
-            "pw": ctx.to_dev(pw),
+            "pw": ctx.to_dev(np.array(pw, np.uint32).reshape(len(rows), nwords)),
+            "ps": ctx.to_dev(np.array(ps, np.uint32).reshape(len(rows), nwords)),
+            "fast": all(1 << 24 < q < 1 << 28 for q in primes),
         }
     return ctx._const_cache[key]
 
@@ -550,8 +553,7 @@ def bs_share(ctx: C.CkksContext, rows, tgt_rows, B: int, nwords: int, top_bits: 
     tl, tf = _bs_tables(ctx, rows, nwords), _bs_tables(ctx, tgt_rows, nwords)
     logn = ctx.params.logn
     if ctx.kernels:
-        mask_l, mask_f = bs_mask(tl["pw"], tf["pw"], tl["q"], tf["q"], tl["mu"], tf["mu"],
-                                 seed, idx, B, nwords, top_bits, logn)
+        mask_l, mask_f = bs_mask(tl, tf, seed, idx, B, nwords, top_bits, logn)
     else:
         mask_l, mask_f = bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], seed, idx, B,
                                        nwords, top_bits, ctx.n)

@@ -191,7 +191,9 @@ def barrett_mu64(basis: RnsBasis, rows, device) -> torch.Tensor:
     """mu = floor(2^64 / q) per row as an int64 tensor [L] on `device`
     (the bits of a uint64; every mu is below 2^63), cached per (rows,
     device).  The kernels K2 and K3 reduce a 64-bit sum a with it:
-    qhat = umulhi64(a, mu), r = a - qhat*q, one conditional subtract."""
+    qhat = umulhi64(a, mu), r = a - qhat*q, one conditional subtract; K4
+    and K5 read their 32-bit constants off it (floor(2^32 / q) is its high
+    word)."""
     device = torch.device(device)
     key = ("mu64", tuple(rows), str(device))
     if key not in basis._cache:

@@ -2,7 +2,8 @@
 sfgwas_tpu/parallel/transport.py):
 
 * the wire codec (encode/decode), which writes the reference's frame bytes
-  and takes torch tensors where the reference takes jax arrays;
+  and takes torch tensors where the reference takes jax arrays (an int32
+  tensor, the port's form of a uint32 residue array, goes as uint32);
 * LocalCluster / LocalTransport: an in-process mesh of queues, one per
   (party pair, channel), for parties that run as threads of one process.
   Messages pass by reference (zero-copy): a tensor on the card stays there;
@@ -61,8 +62,11 @@ def _enc(obj, out: io.BytesIO):
             _enc(v, out)
     elif isinstance(obj, torch.Tensor):
         # a tensor travels as the numpy array of its dtype (read back from
-        # the card where it lies there)
-        _enc(obj.detach().cpu().numpy(), out)
+        # the card where it lies there), but an int32 tensor is the port's
+        # uint32 residue: it goes as <u4 with the same bits, as the
+        # reference frames its residues
+        a = obj.detach().cpu().numpy()
+        _enc(a.view(np.uint32) if a.dtype == np.int32 else a, out)
     else:
         arr = np.asarray(obj)
         if arr.dtype == object:

@@ -270,22 +270,26 @@ def test_mat_mult_cached_kernels_match_plain_path(dev):
 # K4 (uniform_mod), K5 (bs_mask, bs_combine), K6 (crt_lift)
 
 
-@pytest.mark.parametrize("preset,batch,rows,seed,idx", [
-    ("TEST8", 1, (0,), (1, 2), 0),  # one poly of one row
-    ("TEST8", 3, (0, 1, 2, 9), (0xDEADBEEF, 0xFFFFFFFF), 7),  # odd counts, the special row
-    ("TEST10", 5, (0, 3), (12345, 678), 40),
-    ("PN14QP438", 1, tuple(range(18)), (3, 4), 0),  # the public key's draw
-    ("PN14QP438", 7, tuple(range(7)) + (17,), (5, 6), 296),  # the last rotation-key chunk
+@pytest.mark.parametrize("preset,batch,rows,seed,idx,logn", [
+    ("TEST8", 1, (0,), (1, 2), 0, None),  # one poly of one row
+    ("TEST8", 3, (0, 1, 2, 9), (0xDEADBEEF, 0xFFFFFFFF), 7, None),  # odd counts, the special row
+    ("TEST10", 5, (0, 3), (12345, 678), 40, None),
+    ("PN14QP438", 1, tuple(range(18)), (3, 4), 0, None),  # the public key's draw
+    ("PN14QP438", 7, tuple(range(7)) + (17,), (5, 6), 296, None),  # the last rotation-key chunk
+    ("TEST8", 1, (4,), (7, 8), 1, 2),  # one thread's 4 columns: the smallest ring
+    ("TEST8", 3, (0, 2, 5), (9, 10), 2, 3),  # two threads a row, 9 rows
+    ("TEST8", 7000, tuple(range(10)), (11, 12), 3, 2),  # 70000 rows: past the grid's y limit
 ])
-def test_uniform_mod_kernel_matches_plain(dev, preset, batch, rows, seed, idx):
+def test_uniform_mod_kernel_matches_plain(dev, preset, batch, rows, seed, idx, logn):
     params = get_params(preset)
+    logn = logn or params.logn
     q = rns._sel(params.basis, rows, dev)["q"]
     mu = rns.barrett_mu64(params.basis, rows, dev)
     before = PC.UNIFORM_MOD.launches
-    got = PC.uniform_mod(q, mu, seed, idx, batch, params.logn)
+    got = PC.uniform_mod(q, mu, seed, idx, batch, logn)
     torch.cuda.synchronize()
     assert PC.UNIFORM_MOD.launches == before + 1
-    assert torch.equal(got, PC.uniform_mod_plain(q, seed, idx, batch, params.n))
+    assert torch.equal(got, PC.uniform_mod_plain(q, seed, idx, batch, 1 << logn))
     assert bool((got >= 0).all()) and bool((got < q.view(1, -1, 1)).all())
 
 
@@ -313,24 +317,32 @@ def _bs_inputs(dev, preset, rows, tgt_rows, B, nwords, fill, seed):
                                 tl["q"], tf["q"])
 
 
-@pytest.mark.parametrize("preset,nrows,ntgt,B,nwords,top_bits", [
-    ("TEST8", 1, 1, 1, 1, 1),
-    ("TEST8", 3, 9, 3, 3, 23),
-    ("TEST10", 4, 11, 2, 5, 24),
-    ("PN14QP438", 3, 17, 8, 3, 23),  # the top-level refresh of the chip phase
-    ("PN14QP438", 17, 17, 1, 18, 13),  # the widest mask of the preset
+@pytest.mark.parametrize("preset,nrows,ntgt,B,nwords,top_bits,logn", [
+    ("TEST8", 1, 1, 1, 1, 1, None),
+    ("TEST8", 3, 9, 3, 3, 23, None),
+    ("TEST10", 4, 11, 2, 5, 24, None),  # 5 words: the generic kernel
+    ("PN14QP438", 3, 9, 8, 3, 23, None),  # the band refresh of the chip phase
+    ("PN14QP438", 3, 17, 8, 3, 23, None),  # the top-level refresh of the chip phase
+    ("PN14QP438", 17, 17, 1, 18, 13, None),  # the widest mask of the preset (generic)
+    ("TEST8", 1, 1, 1, 1, 24, None),  # one word, all 24 bits
+    ("TEST8", 2, 5, 3, 2, 1, None),
+    ("TEST10", 1, 14, 2, 4, 24, None),  # four words, every row
+    ("TEST8", 3, 9, 1, 4, 1, 2),  # one thread's 4 columns: the smallest ring
+    ("TEST8", 1, 2, 5, 3, 24, 3),  # two threads a b
+    ("TEST8", 1, 1, 70000, 1, 12, 2),  # B past the grid's y limit
+    ("PN12QP109", 3, 5, 2, 3, 24, None),  # primes below 2^24: the generic kernel's exact fold
 ])
-def test_bs_mask_kernel_matches_plain(dev, preset, nrows, ntgt, B, nwords, top_bits):
+def test_bs_mask_kernel_matches_plain(dev, preset, nrows, ntgt, B, nwords, top_bits, logn):
     PM, params, tl, tf, _ = _bs_inputs(dev, preset, tuple(range(nrows)), tuple(range(ntgt)),
-                                       B, nwords, "random", 1)
+                                       1, nwords, "random", 1)
+    logn = logn or params.logn
     seed = (0x9E3779B9, 0x7F4A7C15)
     before = PM.BS_MASK.launches
-    got = PM.bs_mask(tl["pw"], tf["pw"], tl["q"], tf["q"], tl["mu"], tf["mu"], seed, 3, B,
-                     nwords, top_bits, params.logn)
+    got = PM.bs_mask(tl, tf, seed, 3, B, nwords, top_bits, logn)
     torch.cuda.synchronize()
     assert PM.BS_MASK.launches == before + 1
     want = PM.bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], seed, 3, B, nwords, top_bits,
-                            params.n)
+                            1 << logn)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

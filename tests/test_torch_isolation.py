@@ -101,7 +101,8 @@ def test_wrappers_take_plain_path_on_cpu():
     assert torch.equal(PC.uniform_mod(q, mu, seed, 3, 2, basis.logn),
                        PC.uniform_mod_plain(q, seed, 3, 2, basis.n))
     pw = torch.ones((2, 3), dtype=torch.int32)
-    m = PM.bs_mask(pw, pw, q, q, mu, mu, seed, 0, 2, 3, 5, basis.logn)
+    tab = {"pw": pw, "ps": pw, "q": q, "mu": mu, "fast": True}  # as _bs_tables holds them
+    m = PM.bs_mask(tab, tab, seed, 0, 2, 3, 5, basis.logn)
     p = PM.bs_mask_plain(pw, pw, q, q, seed, 0, 2, 3, 5, basis.n)
     assert torch.equal(m[0], p[0]) and torch.equal(m[1], p[1])
     rws = torch.tensor(rows, dtype=torch.int32)

@@ -10,10 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from sfgwas_tpu.crypto import ckks as RC
+from sfgwas_tpu.mpc import mhe as RM
 from sfgwas_tpu.mpc import prg as RP
 from sfgwas_tpu.parallel import transport as RT
+from sfgwas_tpu_torch.crypto import ckks as PC
+from sfgwas_tpu_torch.crypto.params import get_params
+from sfgwas_tpu_torch.mpc import mhe as PM
 from sfgwas_tpu_torch.mpc import prg as PP
-from sfgwas_tpu_torch.ops import cuda_build
+from sfgwas_tpu_torch.ops import cuda_build, rns
 from sfgwas_tpu_torch.parallel import transport as PT
 from sfgwas_tpu_torch.parallel.simulate import run_network_parties
 
@@ -45,16 +50,18 @@ def test_random_streams_match_reference(nparty):
         assert port._cur == ref._cur == pid
 
 
-def _message(arr):
-    """A nested message whose arrays are built by `arr` from numpy."""
+def _message(arr, res=None):
+    """A nested message whose arrays are built by `arr` from numpy, and its
+    uint32 residue array by `res` (default `arr`)."""
     rng = np.random.default_rng(3)
     return {
-        "c0": arr(rng.integers(0, 1 << 26, size=(3, 16)).astype(np.uint32)),
-        "i32": arr(rng.integers(-100, 100, size=(2, 2, 2)).astype(np.int32)),
+        "c0": (res or arr)(rng.integers(0, 1 << 26, size=(3, 16)).astype(np.uint32)),
+        # a host array in both: an int32 tensor of the port is a residue array
+        "i32": rng.integers(-100, 100, size=(2, 2, 2)).astype(np.int32),
         "f32": arr(rng.normal(size=5).astype(np.float32)),
         "f64": rng.normal(size=(4,)),  # a host array in both (jax has no float64 here)
         "nmod": 7, "scale": 1.25e15, "ok": True, "none": None, "name": "ct", "raw": b"\x00\x01",
-        "list": [1, -2, arr(np.arange(3, dtype=np.int32)), (4, "x", [np.int64(9)])],
+        "list": [1, -2, arr(np.arange(3, dtype=np.float32)), (4, "x", [np.int64(9)])],
         7: np.arange(4, dtype=np.uint8),
     }
 
@@ -62,16 +69,17 @@ def _message(arr):
 def test_codec_writes_the_reference_bytes():
     """torch tensors where the reference has jax arrays: the same frame."""
     want = RT.encode(_message(jnp.asarray))
-    assert PT.encode(_message(torch.from_numpy)) == want
+    assert PT.encode(_message(torch.from_numpy, rns.as_i32)) == want  # residues as int32
+    assert PT.encode(_message(torch.from_numpy)) == want  # and as uint32
     assert PT.encode(_message(lambda a: a)) == want
 
 
 def test_decode_round_trips():
-    msg = _message(torch.from_numpy)
+    msg = _message(torch.from_numpy, rns.as_i32)
     got = PT.decode(PT.encode(msg))
     assert set(got) == set(msg)
     for k in ("c0", "i32", "f32", "f64"):
-        want = np.asarray(msg[k])
+        want = rns.to_u32(msg[k]) if k == "c0" else np.asarray(msg[k])
         assert isinstance(got[k], np.ndarray) and np.array_equal(got[k], want)
         assert got[k].dtype == want.dtype
     assert got["list"][3] == (4, "x", [9]) and isinstance(got["list"][3], tuple)
@@ -79,7 +87,30 @@ def test_decode_round_trips():
         7, 1.25e15, True, None, b"\x00\x01")
     assert np.array_equal(got[7], np.arange(4, dtype=np.uint8))
     # and the reference decodes the port's frame
-    assert np.array_equal(RT.decode(PT.encode(msg))["c0"], msg["c0"].numpy())
+    ref = RT.decode(PT.encode(msg))["c0"]
+    assert ref.dtype == np.uint32 and np.array_equal(ref, rns.to_u32(msg["c0"]))
+
+
+def test_ciphertext_frame_is_the_references():
+    """A TEST8 ciphertext: the port's frame of ct_to_wire is the reference's
+    byte for byte (residues as <u4), and each side decodes the other's
+    frame to the same residues."""
+    ctx = PC.CkksContext(get_params("TEST8"), device="cpu")
+    rng = np.random.default_rng(11)
+    sk = ctx.gen_secret_key(rng)
+    ct = ctx.encrypt(ctx.encode(rng.normal(size=ctx.params.slots), ctx.nq),
+                     ctx.gen_public_key(sk, rng), rng)
+    rct = RC.Ciphertext(jnp.asarray(rns.to_u32(ct.c0)), jnp.asarray(rns.to_u32(ct.c1)), ct.nmod,
+                        ct.scale)
+    frame, ref_frame = PT.encode(PM.ct_to_wire(ct)), RT.encode(RM.ct_to_wire(rct))
+    assert frame == ref_frame
+    back = PM.ct_from_wire(PT.decode(ref_frame))
+    assert torch.equal(back.c0, ct.c0) and torch.equal(back.c1, ct.c1)
+    assert (back.nmod, back.scale) == (ct.nmod, ct.scale)
+    rback = RM.ct_from_wire(RT.decode(frame))
+    for a, b in ((rback.c0, rct.c0), (rback.c1, rct.c1)):
+        assert a.dtype == jnp.uint32 and np.array_equal(np.asarray(a), np.asarray(b))
+    assert (rback.nmod, rback.scale) == (ct.nmod, ct.scale)
 
 
 def test_network_collectives_across_threads():

@@ -89,8 +89,8 @@ def test_bs_mask_words_and_folds_match_reference(ctxs, preset, nrows, ntgt, B, n
                                  z(B, ntgt, n), z(B, nrows, n), z(rctx.nq + 1, n),
                                  z(B, nrows, n), z(B, ntgt, n))
     tl, tf = PM._bs_tables(pctx, rows, nwords), PM._bs_tables(pctx, tgt, nwords)
-    ml, mf = PM.bs_mask(tl["pw"], tf["pw"], tl["q"], tf["q"], tl["mu"], tf["mu"],
-                        (int(seed[0]), int(seed[1])), 0, B, nwords, top_bits, pctx.params.logn)
+    ml, mf = PM.bs_mask(tl, tf, (int(seed[0]), int(seed[1])), 0, B, nwords, top_bits,
+                        pctx.params.logn)
     ml, mf = pctx._ntt_b(ml, rows), pctx._ntt_b(mf, tgt)
     assert np.array_equal(_u32(ml.transpose(0, 1)), np.asarray(h1))
     qf = np.array([pctx.basis.primes[r] for r in tgt], np.int64)[None, :, None]
