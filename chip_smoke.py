@@ -24,8 +24,10 @@ Phases (any failed check raises; the exit code is then nonzero):
     the card: the output ciphertexts must be bit-identical;
  5. each kernel against its plain version on the main path's own inputs
     (bit equality) at every shape the main path launches it with, timed:
-    the kernel's device time per launch from torch.profiler (`ms`; a
-    record whose trace shows no launch of its kernel fails the run), the
+    the kernel's device time per launch from torch.profiler (`ms`; a trace
+    without a launch of its kernel is taken again, and after three such
+    traces `ms` is the CUDA-event time of one call and `ms_from` says
+    "events" where it otherwise says "profiler"), the
     CUDA-event time of one wrapper call (`call_ms`, which includes the
     host's work around the launch) and the plain version's (`plain_ms`):
     K1 at every (direction, prime rows, shape) that one mat_mult_cached
@@ -51,8 +53,8 @@ Phases (any failed check raises; the exit code is then nonzero):
     plain versions at every shape the phase launches them with, recorded at
     their wrappers (K4-K6 on the phase's own inputs, K1 on random residues
     of the rows' primes), and timed;
- 7. the static SASS of K4 and K5 (cuobjdump: instructions and opcodes per
-    kernel), one JSON line of kernels, then the final line
+ 7. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+    per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits nonzero and prints no result.
@@ -62,11 +64,13 @@ chiprun_out/mm_profile.txt and chiprun_out/bs_profile.txt and the SASS
 listings to chiprun_out/sass_main_*.txt.
 
 --tree DIR --shapes FILE times only K1 (at one product's shapes), K4 (at
-both paths' draws) and bs_mask (at the MHE phase's row sets), from the
-sfgwas_tpu_torch package under DIR (for example another commit's tree), at
-the shapes of a shapes.json, each against its plain version as above, counts
-the SASS of K4 and K5 (chiprun_out/sass_<DIR's name>_*.txt) and prints one
-JSON line: two trees are compared by running both, in turns, in one call.
+both paths' draws), bs_mask (at the MHE phase's row sets) and K6 (at the
+MHE phase's lifts, on bounded values made from a seed; skipped, and said
+so, when the shapes file has no crt_lift entry), from the sfgwas_tpu_torch
+package under DIR (for example another commit's tree), at the shapes of a
+shapes.json, each against its plain version as above, counts the SASS of
+K4, K5 and K6 (chiprun_out/sass_<DIR's name>_*.txt) and prints one JSON
+line: two trees are compared by running both, in turns, in one call.
 """
 
 from __future__ import annotations
@@ -129,25 +133,44 @@ def _time_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+PROFILE_TRIES = 3
+PROFILE_PAD_S = 0.002
+
+
 def _device_ms(torch, fn, reps: int, kernel: str):
     """Device milliseconds per launch of `kernel` over `reps` calls of fn
     after one warm-up: the sum of the durations torch.profiler records for
-    the device functions named DEVICE_NAMES[kernel], over their count
-    (returned too).  Raises when the trace holds no such launch."""
+    the device functions named DEVICE_NAMES[kernel], over their count, with
+    that count and the source ("profiler").  On an H100 torch.profiler now
+    and then returned a trace of a few short launches (K4 at 7 calls of
+    0.04 ms) with no device event at all, three times in a row, so the
+    launches are framed by PROFILE_PAD_S of host time on each side, and a
+    trace without the kernel's launches is taken again with more calls, up
+    to PROFILE_TRIES times in all; after that the time is the CUDA-event
+    time of one call of fn, a launch with its host overhead, with count 0
+    and source "events"."""
     from torch.profiler import ProfilerActivity, profile
 
     pat = re.compile(DEVICE_NAMES[kernel])
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name)]
-    if not durs:
-        raise AssertionError(f"torch.profiler traced no launch of {kernel} ({pat.pattern})")
-    return sum(durs) / len(durs) / 1e3, len(durs)
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps * attempt):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        events = prof.events()
+        durs = [e.time_range.elapsed_us() for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name)]
+        if durs:
+            return sum(durs) / len(durs) / 1e3, len(durs), "profiler"
+        dev = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+        print(f"chip_smoke: torch.profiler traced no launch of {kernel} ({pat.pattern}) in "
+              f"try {attempt} of {PROFILE_TRIES}: {reps * attempt} calls, {dev} device and "
+              f"{len(events) - dev} host events", file=sys.stderr, flush=True)
+    return _time_ms(torch, fn, reps), 0, "events"
 
 
 def _bound_ms(nbytes: float, ops: float):
@@ -219,14 +242,14 @@ def _check(torch, kernels, name, kernel, source, replaces, shape, run, run_plain
     err = 0 if eq else max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
     del got, want
     fn, plain = timed or (run, run_plain)
-    ms, traced = _device_ms(torch, fn, reps, kernel)
+    ms, traced, ms_from = _device_ms(torch, fn, reps, kernel)
     cms = _time_ms(torch, fn, reps)
     pms = _time_ms(torch, plain, preps)
     bms, by = _bound_ms(nbytes, ops)
     kernels.append(dict(
         name=name, kernel=kernel, route="cuda", source=source, replaces=replaces,
         shape=shape, bit_equal=eq, max_abs_err=err, ms=ms, call_ms=cms, plain_ms=pms,
-        bound_ms=bms, bound_by=by, library_ms=None, traced_launches=traced,
+        bound_ms=bms, bound_by=by, library_ms=None, traced_launches=traced, ms_from=ms_from,
     ))
     torch.cuda.empty_cache()
 
@@ -387,10 +410,39 @@ def _sass(cuda_build, names, out_dir: str, tag: str) -> dict:
     return out
 
 
+def _crt_input(torch, basis, src, M: int, seed: int, dev):
+    """x [l, M]: the residues over the src primes of M centred values |v| <
+    Q/8, Q the product of those primes, as the bootstrap bounds its masked
+    decryption (K6's float step is exact below Q/4)."""
+    qs = [int(basis.primes[r]) for r in src]
+    Q = 1
+    for q in qs:
+        Q *= q
+    rng = np.random.default_rng(seed)
+    v = [int(a) * Q // (8 << 62) for a in rng.integers(-(1 << 62), 1 << 62, size=M)]
+    x = np.array([[vv % q for vv in v] for q in qs], np.uint32)
+    return torch.from_numpy(x.view(np.int32)).to(dev)
+
+
+def _crt_check(torch, rns, kernels, x, t, run):
+    """K6 (`run`) against its plain version on x with the tables t."""
+    l, M = x.shape
+    D = t["p"].shape[0]
+    nbytes = 4 * M * (l + D)
+    _check(torch, kernels, f"crt_lift {[l, D, M]}", "crt_lift",
+           "sfgwas_tpu_torch/csrc/crt_lift.cu", "sfgwas_tpu/ops/rns.py:540", [l, D, M],
+           lambda: [run(x, t)], lambda: [rns.crt_lift_plain(x, t)],
+           max(5, min(100, int(2e8 // (nbytes + 1)))), 1,
+           nbytes, M * (l * (3 + BARRETT_OPS) + D * (2 * l + 2 + BARRETT_OPS)))
+
+
 def tree_only(torch, root: str, shapes_path: str) -> int:
-    """Time K1, K4 and bs_mask of the package under `root` at the shapes of
-    a shapes.json, each against its plain version, and count the SASS of K4
-    and K5; prints one JSON line."""
+    """Time K1, K4, bs_mask and K6 of the package under `root` at the shapes
+    of a shapes.json, each against its plain version, and count the SASS of
+    K4, K5 and K6; prints one JSON line.  K6 is timed at each recorded
+    (src, dst, M), at src -> dst[:1] (the fixed cost beside the per-row
+    slope) and, where the tree has crt_lift_group, at every rows-a-block
+    count its rule gives for a cap of 1..CRT_LIFT_MAX_GROUP."""
     sys.path.insert(0, os.path.abspath(root))
     from sfgwas_tpu_torch.crypto import ckks as C
     from sfgwas_tpu_torch.crypto.params import get_params
@@ -401,7 +453,7 @@ def tree_only(torch, root: str, shapes_path: str) -> int:
     _say(smi)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    cuda_build.build(["ntt", "crp", "bs_share"])
+    cuda_build.build(["ntt", "crp", "bs_share", "crt_lift"])
     with open(shapes_path) as f:
         shapes = json.load(f)
     params = get_params(shapes["preset"])
@@ -416,12 +468,35 @@ def tree_only(torch, root: str, shapes_path: str) -> int:
         tl, tf = PM._bs_tables(ctx, tuple(rows), nwords), PM._bs_tables(ctx, tuple(tgt), nwords)
         _bs_mask_check(torch, PM, kernels, tl, tf, (i + 3, 4), i, b, nwords, top, params.logn,
                        lambda *a: _bs_mask_call(PM, *a))
+    crt = shapes.get("crt_lift")
+    if crt:
+        grouped = hasattr(rns, "crt_lift_group")
+        src0, dst0, M0 = crt[0]  # first with its first destination row alone: the fixed cost
+        for i, (src, dst, M) in enumerate([[src0, dst0[:1], M0]] + crt):
+            x = _crt_input(torch, params.basis, src, M, i, dev)
+            t = rns._crt_tables(params.basis, tuple(src), tuple(dst), dev)
+            _crt_check(torch, rns, kernels, x, t, rns.crt_lift)
+            if not grouped:
+                continue
+            default, seen = rns.CRT_LIFT_GROUP, set()
+            try:  # every rows-a-block count the wrapper's rule gives for a cap of 1..8
+                for cap in range(1, rns.CRT_LIFT_MAX_GROUP + 1):
+                    rns.CRT_LIFT_GROUP = cap
+                    g = rns.crt_lift_group(len(dst))
+                    if g not in seen:
+                        seen.add(g)
+                        _crt_check(torch, rns, kernels, x, t, rns.crt_lift)
+                        kernels[-1].update(name=kernels[-1]["name"] + f" G={g}", group=g)
+            finally:
+                rns.CRT_LIFT_GROUP = default
+            del x
     tag = os.path.basename(os.path.abspath(root))
-    sass = _sass(cuda_build, ("crp", "bs_share"),
+    sass = _sass(cuda_build, ("crp", "bs_share", "crt_lift"),
                  os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out"), tag)
     bad = [k["name"] for k in kernels if not k["bit_equal"]]
     _say(json.dumps({"tree": os.path.abspath(root), "card": smi, "k1_total_ms": total,
-                     "sass": sass, "kernels": kernels}))
+                     "crt_lift": "timed" if crt else "skipped: the shapes file has no crt_lift "
+                     "entry", "sass": sass, "kernels": kernels}))
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: {bad}")
     return 0
@@ -579,17 +654,6 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
 
     # K4, K5 and K6 at every recorded shape
     N = params.n
-    src = {"bs_combine": ("sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:636"),
-           "crt_lift": ("sfgwas_tpu_torch/csrc/crt_lift.cu", "sfgwas_tpu/ops/rns.py:540")}
-
-    def check(name, key, shape, run, run_plain, nbytes, ops):
-        _check(torch, kernels, f"{name} {list(shape)}", name, src[name][0], src[name][1],
-               list(shape), run, run_plain, max(5, min(100, int(2e8 // (nbytes + 1)))), 1,
-               nbytes, ops)
-        kernels[-1]["launches"] = launches[name]
-        kernels[-1]["launches_at_shape"] = counts[(name, key)]
-        kernels[-1]["path"] = "mhe"
-
     first = len(kernels)
     k4_shapes = _k4_rows(torch, C, rec, params.basis, kernels)
     for k in kernels[first:]:
@@ -604,23 +668,29 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         bs_shapes.append([b, tl["rows"].tolist(), tf["rows"].tolist(), nwords, top])
     for key, a in sorted(rec.args["bs_combine"].items()):
         b, L, _, Lf = key
-        check("bs_combine", key, [b, L, Lf, N],
-              lambda: list(real["bs_combine"](*a)),
-              lambda: list(PM.bs_combine_plain(*a[:11])),
-              4 * N * (4 * b * (L + Lf) + L + Lf),  # 3 inputs + 1 output per residue, sk rows
-              b * N * (L * (4 + BARRETT_OPS) + Lf * (6 + 2 * BARRETT_OPS)))
+        nbytes = 4 * N * (4 * b * (L + Lf) + L + Lf)  # 3 inputs + 1 output per residue, sk rows
+        _check(torch, kernels, f"bs_combine {[b, L, Lf, N]}", "bs_combine",
+               "sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:636", [b, L, Lf, N],
+               lambda: list(real["bs_combine"](*a)), lambda: list(PM.bs_combine_plain(*a[:11])),
+               max(5, min(100, int(2e8 // (nbytes + 1)))), 1, nbytes,
+               b * N * (L * (4 + BARRETT_OPS) + Lf * (6 + 2 * BARRETT_OPS)))
+        kernels[-1].update(launches=launches["bs_combine"], path="mhe",
+                           launches_at_shape=counts[("bs_combine", key)])
+    crt_shapes = []
     for key, (x, t) in sorted(rec.args["crt_lift"].items()):
-        (l, M), D = key
-        check("crt_lift", key, [l, D, M],
-              lambda: [real["crt_lift"](x, t)], lambda: [rns.crt_lift_plain(x, t)],
-              4 * M * (l + D), M * (l * (3 + BARRETT_OPS) + D * (2 * l + 2 + BARRETT_OPS)))
+        _crt_check(torch, rns, kernels, x, t, real["crt_lift"])
+        kernels[-1].update(launches=launches["crt_lift"], path="mhe",
+                           launches_at_shape=counts[("crt_lift", key)])
+        crt_shapes.append([[params.basis.primes.index(int(v)) for v in t[r].tolist()]
+                           for r in ("q", "p")] + [x.shape[1]])
     return {
         "preset": preset, "parties": 3, "vectors": nvec, "low_nmod": low_nmod,
         "setup_s": setup_s, "rotation_keys": hub["rot_keys"], "phase_s": t_phase,
         "parties_out": {str(p): {k: v for k, v in res[p].items() if k != "setup"} for p in (1, 2)},
         "launches": launches, "profile": profiled, "k1_total_ms": k1_total,
         "shapes": {name: [list(k) for k in r] for name, r in rec.args.items()},
-        "k1_shapes": k1_shapes, "tree_shapes": {"uniform_mod": k4_shapes, "bs_mask": bs_shapes},
+        "k1_shapes": k1_shapes,
+        "tree_shapes": {"uniform_mod": k4_shapes, "bs_mask": bs_shapes, "crt_lift": crt_shapes},
     }
 
 
@@ -628,7 +698,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tree", metavar="DIR",
-                    help="time only K1, K4 and bs_mask of the package under DIR")
+                    help="time only K1, K4, bs_mask and K6 of the package under DIR")
     ap.add_argument("--shapes", metavar="FILE", help="their shapes (a full run's shapes.json)")
     args = ap.parse_args()
     if bool(args.tree) != bool(args.shapes):
@@ -888,10 +958,10 @@ def main() -> int:
     shapes = mhe.pop("tree_shapes")
     k4_shapes += [s for s in shapes["uniform_mod"] if s not in k4_shapes]
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes,
-              "bs_mask": shapes["bs_mask"]}
+              "bs_mask": shapes["bs_mask"], "crt_lift": shapes["crt_lift"]}
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
         json.dump(shapes, f)
-    sass = _sass(cuda_build, ("crp", "bs_share"), out_dir, "main")
+    sass = _sass(cuda_build, ("crp", "bs_share", "crt_lift"), out_dir, "main")
     for fn, v in sass.items():
         _say(f"sass {fn[:60]}: {v['instructions']} instructions, {json.dumps(v['ops'])}")
 

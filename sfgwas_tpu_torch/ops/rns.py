@@ -347,16 +347,29 @@ def rns_to_ints(res, primes) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Kernel K6: the device CRT lift of protocol-bounded values
 
-_U64, _PTR, _INT = ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int
-CRT_LIFT = CudaKernel("crt_lift", "crt_lift", [_PTR] * 10 + [_INT, _INT, ctypes.c_longlong])
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+CRT_LIFT = CudaKernel("crt_lift", "crt_lift", [_PTR] * 3 + [_INT] * 3 + [ctypes.c_longlong])
 CRT_LIFT_MAX_ROWS = 24  # LMAX in csrc/crt_lift.cu
+CRT_LIFT_MAX_GROUP = 8  # GMAX in csrc/crt_lift.cu
+CRT_LIFT_GROUP = 6  # destination rows a block, at most (the fastest at the PN14 lifts)
 
 
-def _crt_tables(basis: RnsBasis, src_rows, dst_rows, device) -> Dict[str, torch.Tensor]:
+def crt_lift_group(D: int) -> int:
+    """K6's destination rows a block for D rows: the fewest groups of at
+    most CRT_LIFT_GROUP rows, as even as they come."""
+    groups = -(-D // CRT_LIFT_GROUP)
+    return -(-D // groups)
+
+
+def _crt_tables(basis: RnsBasis, src_rows, dst_rows, device) -> dict:
     """K6's tables for src -> dst, cached per (rows, device): w = (Q/q_i)^-1
-    mod q_i [l], inv_q = 1/q_i in float32 [l], T = (Q/q_i) mod p_d [D, l],
-    negQ = p_d - (Q mod p_d) [D], the source and destination primes and
-    their 64-bit Barrett constants."""
+    mod q_i [l], q [l], inv_q = 1/q_i in float32 [l], T = (Q/q_i) mod p_d
+    [D, l], negQ = p_d - (Q mod p_d) [D], p [D]; `pack`, the kernel's one
+    table (csrc/crt_lift.cu): per source row w, its Shoup quotient
+    floor(w 2^32 / q), q and the bits of inv_q, then per destination row
+    negQ and its quotient, p, floor(2^32 / p) and each T[d, i] with its
+    quotient; and `sum_bound` = 2 (l + 1) max p, the bound of the kernel's
+    lazy 32-bit sum."""
     device = torch.device(device)
     key = ("crt", tuple(src_rows), tuple(dst_rows), str(device))
     if key not in basis._cache:
@@ -365,21 +378,25 @@ def _crt_tables(basis: RnsBasis, src_rows, dst_rows, device) -> Dict[str, torch.
         Q = 1
         for q in qs:
             Q *= q
+        w = [pow(Q // q, -1, q) for q in qs]
+        inv_q = np.array([1.0 / q for q in qs], np.float32)
+        T = [[(Q // q) % p for q in qs] for p in ps]
+        negQ = [(p - Q % p) % p for p in ps]
+        pack = [[wi, (wi << 32) // q, q, int(b)] for wi, q, b in zip(w, qs, inv_q.view(np.uint32))]
+        for p, nq, row in zip(ps, negQ, T):
+            pack.append([nq, (nq << 32) // p, p, (1 << 32) // p]
+                        + [v for ti in row for v in (ti, (ti << 32) // p)])
         u32 = lambda v: as_i32(np.array(v, dtype=np.uint32)).to(device)  # noqa: E731
         basis._cache[key] = {
-            "w": u32([pow(Q // q, -1, q) for q in qs]),
-            "q": u32(qs),
-            "mu": barrett_mu64(basis, tuple(src_rows), device),
-            "inv_q": torch.tensor(np.array([1.0 / q for q in qs], np.float32)).to(device),
-            "T": u32([[(Q // q) % p for q in qs] for p in ps]),
-            "negQ": u32([(p - Q % p) % p for p in ps]),
-            "p": u32(ps),
-            "mu_p": barrett_mu64(basis, tuple(dst_rows), device),
+            "w": u32(w), "q": u32(qs), "inv_q": torch.from_numpy(inv_q).to(device),
+            "T": u32(T), "negQ": u32(negQ), "p": u32(ps),
+            "pack": u32([v for row in pack for v in row]),
+            "sum_bound": 2 * (len(qs) + 1) * max(ps),
         }
     return basis._cache[key]
 
 
-def crt_lift_plain(x, t: Dict[str, torch.Tensor]) -> torch.Tensor:
+def crt_lift_plain(x, t: dict) -> torch.Tensor:
     """Plain version of K6 on x [l, M] with the tables of _crt_tables:
     y = x*w mod q, k = round(sum y * (1/q)) in float32, then
     sum_i y_i*T[d,i] + k*negQ[d] mod p_d, exact in int64."""
@@ -390,30 +407,25 @@ def crt_lift_plain(x, t: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.remainder(acc, t["p"].long()[:, None]).to(torch.int32)
 
 
-def crt_lift(x, t: Dict[str, torch.Tensor]) -> torch.Tensor:
+def crt_lift(x, t: dict) -> torch.Tensor:
     """Kernel K6 for a CUDA x (the plain version for a CPU x): x [l, M]
-    int32 residues -> [D, M] with the tables of _crt_tables."""
+    int32 residues -> [D, M] with the tables of _crt_tables, in blocks of
+    crt_lift_group(D) destination rows."""
     if x.device.type == "cpu":
         return crt_lift_plain(x, t)
     l, M = x.shape
     D = t["p"].shape[0]
     if not 1 <= l <= CRT_LIFT_MAX_ROWS:
         raise ValueError(f"crt_lift: {l} source rows; the kernel takes 1..{CRT_LIFT_MAX_ROWS}")
+    if t["sum_bound"] >= 1 << 32:
+        raise ValueError(f"crt_lift: the lazy sum of {l + 1} terms below 2 p reaches "
+                         f"{t['sum_bound']} >= 2^32")
     dev = x.device
     check(x, "x", dev)
-    for name in ("w", "q", "T", "negQ", "p"):
-        check(t[name], name, dev)
-    check(t["inv_q"], "inv_q", dev, (l,), torch.float32)
-    check(t["mu"], "mu", dev, (l,), torch.int64)
-    check(t["mu_p"], "mu_p", dev, (D,), torch.int64)
-    if tuple(t["T"].shape) != (D, l):
-        raise ValueError(f"crt_lift: tables for {tuple(t['T'].shape)}, x has {l} rows")
+    check(t["pack"], "pack", dev, (4 * l + D * (4 + 2 * l),))
     out = torch.empty((D, M), dtype=torch.int32, device=dev)
     if M:
-        CRT_LIFT.launch(
-            dev, ptr(out), ptr(x), ptr(t["w"]), ptr(t["q"]), ptr(t["mu"]), ptr(t["inv_q"]),
-            ptr(t["T"]), ptr(t["negQ"]), ptr(t["p"]), ptr(t["mu_p"]), l, D, M,
-        )
+        CRT_LIFT.launch(dev, ptr(out), ptr(x), ptr(t["pack"]), l, D, crt_lift_group(D), M)
     return out
 
 

@@ -361,37 +361,62 @@ def test_bs_combine_kernel_matches_plain(dev, preset, nrows, ntgt, B, fill):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def _bounded(params, src, dst, M, fill, seed, dev):
+def _crt_basis(preset):
+    """The preset's whole chain (its Q primes and the special prime) with
+    NTT tables for a tiny ring: K6 reads only the primes."""
+    q, sp = prime_chain(PRESETS[preset])
+    return rns.RnsBasis(q + [sp], 3)
+
+
+def _bounded(basis, src, dst, M, fill, seed, dev):
     """Residues over src of centred values |v| < Q/8 (or 0, or -1 = q - 1
     in every row), and the exact residues over dst."""
     rng = np.random.default_rng(seed)
-    Q = params.q_prod(len(src))  # src is a prefix of the chain
+    Q = 1
+    for r in src:
+        Q *= basis.primes[r]
     if fill == "random":
-        v = [int(x) * (Q >> 70) // 8 for x in rng.integers(-(1 << 62), 1 << 62, size=M)]
+        v = [int(x) * Q // (8 << 62) for x in rng.integers(-(1 << 62), 1 << 62, size=M)]
     else:
         v = [0 if fill == "zero" else -1] * M
-    x = np.array([[vv % params.basis.primes[r] for vv in v] for r in src], np.uint32)
-    want = np.array([[vv % params.basis.primes[r] for vv in v] for r in dst], np.uint32)
+    x = np.array([[vv % basis.primes[r] for vv in v] for r in src], np.uint32)
+    want = np.array([[vv % basis.primes[r] for vv in v] for r in dst], np.uint32)
     return rns.as_i32(x).to(dev), rns.as_i32(want).to(dev)
 
 
 @pytest.mark.parametrize("fill", ["random", "zero", "top"])
-@pytest.mark.parametrize("preset,l,D,M", [
-    ("TEST8", 3, 1, 256),
-    ("TEST8", 3, 9, 3 * 256 + 1),
-    ("PN14QP438", 3, 9, 8 * 16384),  # the band-targeted refresh
-    ("PN14QP438", 3, 17, 8 * 16384),  # the top-level refresh
-    ("PN14QP438", 17, 17, 16384),
+@pytest.mark.parametrize("preset,l,D,M,cap,offset", [
+    ("TEST8", 3, 1, 256, None, 0),
+    ("TEST8", 3, 9, 3 * 256 + 1, None, 0),  # M % 4 != 0: one column a thread
+    ("TEST8", 3, 9, 3, None, 0),  # M < 4
+    ("TEST8", 1, 9, 1024, None, 0),
+    ("TEST8", 3, 9, 1024, None, 1),  # x 4 bytes past a 16-byte boundary: one column a thread
+    ("TEST8", 3, 3, 1024, 2, 0),  # D = G + 1: groups of 2 and 1 rows
+    ("TEST8", 3, 9, 1024, 8, 0),  # groups of 5 and 4
+    ("TEST10", 3, 13, 1024, None, 0),  # groups of 5, 5 and 3 rows
+    ("PN14QP438", 3, 9, 8 * 16384, None, 0),  # the band-targeted refresh
+    ("PN14QP438", 3, 17, 8 * 16384, None, 0),  # the top-level refresh
+    ("PN14QP438", 17, 17, 16384, None, 0),
+    ("PN15QP880", 24, 34, 4096, None, 0),  # every source row the kernel takes, the whole chain
+    ("PN15QP880", 3, 34, 8 * 32768, None, 0),
 ])
-def test_crt_lift_kernel_matches_plain(dev, preset, l, D, M, fill):
-    params = get_params(preset)
+def test_crt_lift_kernel_matches_plain(dev, monkeypatch, preset, l, D, M, cap, offset, fill):
+    """cap: the rows a block at most, in place of the wrapper's."""
+    if cap:
+        monkeypatch.setattr(rns, "CRT_LIFT_GROUP", cap)
+    basis = _crt_basis(preset)
     src, dst = tuple(range(l)), tuple(range(D))
-    x, want = _bounded(params, src, dst, M if fill == "random" else min(M, 4096), fill, l, dev)
+    x, want = _bounded(basis, src, dst, M if fill == "random" else min(M, 4096), fill, l, dev)
+    if offset:  # the same values, contiguous, offset words past the allocation's start
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        x = buf[offset:].view(x.shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
     before = rns.CRT_LIFT.launches
-    got = rns.crt_lift_centered_dev(x, params.basis, src, dst)
+    t = rns._crt_tables(basis, src, dst, dev)
+    got = rns.crt_lift(x, t)
     torch.cuda.synchronize()
     assert rns.CRT_LIFT.launches == before + 1
-    assert torch.equal(got, rns.crt_lift_centered_dev(x, params.basis, src, dst, plain=True))
+    assert torch.equal(got, rns.crt_lift_plain(x, t))
     assert torch.equal(got, want)
 
 
@@ -400,6 +425,7 @@ def test_kernel_limits_match_their_wrappers(dev):
 
     assert cuda_build.load("bs_share").bs_max_words() == PM.BS_MAX_WORDS
     assert cuda_build.load("crt_lift").crt_lift_max_rows() == rns.CRT_LIFT_MAX_ROWS
+    assert cuda_build.load("crt_lift").crt_lift_max_group() == rns.CRT_LIFT_MAX_GROUP
 
 
 def test_bs_share_kernels_match_plain_context(dev):
@@ -440,8 +466,8 @@ def test_concurrent_first_use_builds_once_and_counts_every_launch(dev, monkeypat
     real_build = cuda_build.build
     monkeypatch.setattr(cuda_build, "build", lambda names: builds.append(list(names))
                         or real_build(names))
-    params = get_params("TEST8")
-    x, want = _bounded(params, (0, 1, 2), tuple(range(9)), 512, "random", 5, dev)
+    basis = _crt_basis("TEST8")
+    x, want = _bounded(basis, (0, 1, 2), tuple(range(9)), 512, "random", 5, dev)
     before = rns.CRT_LIFT.launches
     outs, errs = [], []
     start = threading.Barrier(3)
@@ -450,7 +476,7 @@ def test_concurrent_first_use_builds_once_and_counts_every_launch(dev, monkeypat
         try:
             start.wait(timeout=60)
             for _ in range(20):
-                outs.append(rns.crt_lift_centered_dev(x, params.basis, (0, 1, 2), tuple(range(9))))
+                outs.append(rns.crt_lift_centered_dev(x, basis, (0, 1, 2), tuple(range(9))))
         except BaseException as e:  # noqa: BLE001 - reported below
             errs.append(e)
 
