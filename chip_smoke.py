@@ -53,19 +53,46 @@ Phases (any failed check raises; the exit code is then nonzero):
     plain versions at every shape the phase launches them with, recorded at
     their wrappers (K4-K6 on the phase's own inputs, K1 on random residues
     of the rows' primes), and timed;
- 7. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+ 7. the secret-sharing domain and the SS<->HE bridge at PN14QP438: three
+    parties as threads on the card (dealer 0, data parties 1 and 2, hub 1;
+    run_parties with the 256-bit field, 60 data bits, 30 fraction bits,
+    boolean shares and the native ring engine) under collective keys from
+    collective_init with an empty shift set (the conjugation key alone).
+    The std-inverse round trip of sfgwas_tpu/gwas/assoc.py:383-410 at the
+    example's size, n = 99,337 (99,336 SNP variances and the phenotype's,
+    uniform in [0.01, 4] from --seed): each data party encrypts its half as
+    13 ciphertexts of 8192 slots (and party 1 the phenotype's), they are
+    aggregated and dropped to nmod 3, then cvec_to_ss / ciphertext_to_ss
+    (whose guard refreshes them through the collective bootstrap first),
+    sqrt_and_sqrt_inverse over all n values, ss_to_cmat / ss_to_ciphertext
+    and collective_decrypt_many: 1/sqrt(v) within 1e-4 max(1, 1/sqrt(v)) of
+    numpy at both data parties.  One warm-up round trip at n = 8,192 (also
+    checked), then the timed one, with every launch count set to 0 just
+    before it and read right after it: party 1's stages as synchronized
+    spans, its square root under a host profile (shares in the native
+    engine, in Beaver partitions, in the ring draws and in transport waits),
+    the round trip under torch.profiler over all threads (the device's idle
+    share; a read of a device value by the host fails the run, and so do
+    more device -> host copies than the hub's one a converted ciphertext).
+    Then chol_whiten of a 6 x 6 Gram (the example's 5 covariates and the
+    ones column, from --seed): W upper triangular, W^T G W = I within 2e-2.
+    K1, K4, K5 and K6 are held bit for bit against their plain versions at
+    every shape the timed round trip launched them with, recorded at their
+    wrappers, and timed;
+ 8. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits nonzero and prints no result.
 Writes the record to chiprun_out/chip_smoke.json, the shapes --tree times
 to chiprun_out/shapes.json, the profiler's tables to
-chiprun_out/mm_profile.txt and chiprun_out/bs_profile.txt and the SASS
-listings to chiprun_out/sass_main_*.txt.
+chiprun_out/mm_profile.txt, chiprun_out/bs_profile.txt and
+chiprun_out/ss_profile.txt and the SASS listings to
+chiprun_out/sass_main_*.txt.
 
 --tree DIR --shapes FILE times only K1 (at one product's shapes), K4 (at
-both paths' draws), bs_mask (at the MHE phase's row sets) and K6 (at the
-MHE phase's lifts, on bounded values made from a seed; skipped, and said
+every path's draws), bs_mask (at the MHE and SS phases' row sets) and K6
+(at those phases' lifts, on bounded values made from a seed; skipped, and said
 so, when the shapes file has no crt_lift entry), from the sfgwas_tpu_torch
 package under DIR (for example another commit's tree), at the shapes of a
 shapes.json, each against its plain version as above, counts the SASS of
@@ -216,6 +243,7 @@ def _profile(torch, fn, path: str, all_threads: bool = False) -> dict:
     busy += cur_e - cur_s
     window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     readbacks = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
+    dtoh = sum(1 for e in dev if "DtoH" in e.name)  # device -> host copies
     host_threads = len({e.thread for e in events if e.device_type != torch.autograd.DeviceType.CUDA})
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
@@ -225,7 +253,7 @@ def _profile(torch, fn, path: str, all_threads: bool = False) -> dict:
         "device_sum_ms": sum(by_name.values()) / 1e3, "idle_share": 1 - busy / window,
         "kernels": len(dev), "top_ms": [[k[:80], v / 1e3] for k, v in top[:15]],
         "k1_ms": sum(v for k, v in by_name.items() if "ntt_" in k) / 1e3,
-        "host_readbacks": readbacks, "host_threads": host_threads,
+        "host_readbacks": readbacks, "dtoh_copies": dtoh, "host_threads": host_threads,
     }
 
 
@@ -502,16 +530,93 @@ def tree_only(torch, root: str, shapes_path: str) -> int:
     return 0
 
 
+def _collective_recorder() -> "_Recorder":
+    """A recorder at the wrappers of the kernels the collective protocols
+    launch: K1, K4, K5 (bs_mask, bs_combine) and K6."""
+    from sfgwas_tpu_torch.crypto import ckks as C
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.ops import cuda_ntt, rns
+
+    rec = _Recorder()
+    rec.wrap(cuda_ntt, "ntt_b_kernel", "k1", _k1_key)
+    rec.wrap(C, "uniform_mod", "uniform_mod", lambda q, mu, sd, idx, b, logn: (b, q.shape[0]))
+    rec.wrap(PM, "bs_mask", "bs_mask",
+             lambda tl, tf, sd, idx, b, nwords, top, logn: (b, tl["q"].shape[0],
+                                                            tf["q"].shape[0], nwords))
+    rec.wrap(PM, "bs_combine", "bs_combine", lambda *a: tuple(a[0].shape) + (a[1].shape[1],))
+    rec.wrap(rns, "crt_lift", "crt_lift", lambda x, t: (tuple(x.shape), t["p"].shape[0]))
+    return rec
+
+
+def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str):
+    """K1 (at every recorded direction, rows and shape, on random residues
+    of the rows' primes), K4, K5 and K6 (on the recorded inputs) against
+    their plain versions, each record tagged with `path` and its launches
+    there.  Returns (K1's shapes, K1's total ms over the path, the shapes
+    --tree times)."""
+    from sfgwas_tpu_torch.crypto import ckks as C
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.ops import cuda_ntt, rns
+
+    real, counts = rec.real, rec.counts
+    # K1 at every recorded (direction, rows, shape)
+    k1_shapes = rec.k1_shapes()
+    del rec.args["k1"]  # K1 is checked on random residues of the rows' primes
+    for sym, inv in (("ntt_fwd", False), ("ntt_inv", True)):
+        if sum(n for i, _, _, n in k1_shapes if i == inv) != launches[sym]:
+            raise AssertionError(f"K1 shapes recorded {k1_shapes} miss launches of {sym}")
+    first = len(kernels)
+    k1_total = _k1_rows(torch, cuda_ntt, rns, params.basis, k1_shapes, torch.device("cuda", 0),
+                        kernels, per="launches_at_shape")
+    for k in kernels[first:]:
+        k["launches"], k["path"] = launches[k["kernel"]], path
+    _say(f"K1 over the {path} path: {k1_total:.4f} ms (sum of launches x ms) at "
+         f"{len(k1_shapes)} shapes")
+
+    # K4, K5 and K6 at every recorded shape
+    N = params.n
+    first = len(kernels)
+    k4_shapes = _k4_rows(torch, C, rec, params.basis, kernels)
+    for k in kernels[first:]:
+        k["launches"], k["path"] = launches["uniform_mod"], path
+    bs_shapes = []
+    for key, a in sorted(rec.args["bs_mask"].items()):
+        tl, tf, sd, idx, b, nwords, top, logn = a
+        _bs_mask_check(torch, PM, kernels, tl, tf, sd, idx, b, nwords, top, logn,
+                       real["bs_mask"])
+        kernels[-1].update(launches=launches["bs_mask"], path=path,
+                           launches_at_shape=counts[("bs_mask", key)])
+        bs_shapes.append([b, tl["rows"].tolist(), tf["rows"].tolist(), nwords, top])
+    for key, a in sorted(rec.args["bs_combine"].items()):
+        b, L, _, Lf = key
+        nbytes = 4 * N * (4 * b * (L + Lf) + L + Lf)  # 3 inputs + 1 output per residue, sk rows
+        _check(torch, kernels, f"bs_combine {[b, L, Lf, N]}", "bs_combine",
+               "sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:636", [b, L, Lf, N],
+               lambda: list(real["bs_combine"](*a)), lambda: list(PM.bs_combine_plain(*a[:11])),
+               max(5, min(100, int(2e8 // (nbytes + 1)))), 1, nbytes,
+               b * N * (L * (4 + BARRETT_OPS) + Lf * (6 + 2 * BARRETT_OPS)))
+        kernels[-1].update(launches=launches["bs_combine"], path=path,
+                           launches_at_shape=counts[("bs_combine", key)])
+    crt_shapes = []
+    for key, (x, t) in sorted(rec.args["crt_lift"].items()):
+        _crt_check(torch, rns, kernels, x, t, real["crt_lift"])
+        kernels[-1].update(launches=launches["crt_lift"], path=path,
+                           launches_at_shape=counts[("crt_lift", key)])
+        crt_shapes.append([[params.basis.primes.index(int(v)) for v in t[r].tolist()]
+                           for r in ("q", "p")] + [x.shape[1]])
+    return k1_shapes, k1_total, {"uniform_mod": k4_shapes, "bs_mask": bs_shapes,
+                                 "crt_lift": crt_shapes}
+
+
 def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     """Phase 6: the 3-party collective keygen, bootstrap and decrypt at
     PN14QP438 on the card, then K1, K4, K5 and K6 against their plain
     versions at every shape the phase launched them with.  Appends the
     kernels' records to `kernels` and returns the phase's record."""
     from sfgwas_tpu_torch.crypto import basics as B
-    from sfgwas_tpu_torch.crypto import ckks as C
     from sfgwas_tpu_torch.crypto.params import get_params
     from sfgwas_tpu_torch.mpc import mhe as PM
-    from sfgwas_tpu_torch.ops import cuda_build, cuda_ntt, rns
+    from sfgwas_tpu_torch.ops import cuda_build
     from sfgwas_tpu_torch.parallel.simulate import run_network_parties
     from sfgwas_tpu_torch.utils import prof
 
@@ -528,15 +633,7 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     # launches per shape, recorded at the wrappers; launches made for the
     # comparisons below are not counted in the phase's counts, which are
     # read before them
-    rec = _Recorder()
-    rec.wrap(cuda_ntt, "ntt_b_kernel", "k1", _k1_key)
-    rec.wrap(C, "uniform_mod", "uniform_mod", lambda q, mu, sd, idx, b, logn: (b, q.shape[0]))
-    rec.wrap(PM, "bs_mask", "bs_mask",
-             lambda tl, tf, sd, idx, b, nwords, top, logn: (b, tl["q"].shape[0],
-                                                            tf["q"].shape[0], nwords))
-    rec.wrap(PM, "bs_combine", "bs_combine", lambda *a: tuple(a[0].shape) + (a[1].shape[1],))
-    rec.wrap(rns, "crt_lift", "crt_lift", lambda x, t: (tuple(x.shape), t["p"].shape[0]))
-    real, counts = rec.real, rec.counts
+    rec = _collective_recorder()
 
     keygen_done = threading.Barrier(3)
     data_sync = threading.Barrier(2)
@@ -638,60 +735,327 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         raise AssertionError(f"the bootstrap read {profiled['host_readbacks']} device values "
                              "back to the host")
 
-    # K1 at every recorded (direction, rows, shape)
-    k1_shapes = rec.k1_shapes()
-    del rec.args["k1"]  # K1 is checked on random residues of the rows' primes
-    for sym, inv in (("ntt_fwd", False), ("ntt_inv", True)):
-        if sum(n for i, _, _, n in k1_shapes if i == inv) != launches[sym]:
-            raise AssertionError(f"K1 shapes recorded {k1_shapes} miss launches of {sym}")
-    first = len(kernels)
-    k1_total = _k1_rows(torch, cuda_ntt, rns, params.basis, k1_shapes, torch.device("cuda", 0),
-                        kernels, per="launches_at_shape")
-    for k in kernels[first:]:
-        k["launches"], k["path"] = launches[k["kernel"]], "mhe"
-    _say(f"K1 over the mhe phase: {k1_total:.4f} ms (sum of launches x ms) at "
-         f"{len(k1_shapes)} shapes")
-
-    # K4, K5 and K6 at every recorded shape
-    N = params.n
-    first = len(kernels)
-    k4_shapes = _k4_rows(torch, C, rec, params.basis, kernels)
-    for k in kernels[first:]:
-        k["launches"], k["path"] = launches["uniform_mod"], "mhe"
-    bs_shapes = []
-    for key, a in sorted(rec.args["bs_mask"].items()):
-        tl, tf, sd, idx, b, nwords, top, logn = a
-        _bs_mask_check(torch, PM, kernels, tl, tf, sd, idx, b, nwords, top, logn,
-                       real["bs_mask"])
-        kernels[-1].update(launches=launches["bs_mask"], path="mhe",
-                           launches_at_shape=counts[("bs_mask", key)])
-        bs_shapes.append([b, tl["rows"].tolist(), tf["rows"].tolist(), nwords, top])
-    for key, a in sorted(rec.args["bs_combine"].items()):
-        b, L, _, Lf = key
-        nbytes = 4 * N * (4 * b * (L + Lf) + L + Lf)  # 3 inputs + 1 output per residue, sk rows
-        _check(torch, kernels, f"bs_combine {[b, L, Lf, N]}", "bs_combine",
-               "sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:636", [b, L, Lf, N],
-               lambda: list(real["bs_combine"](*a)), lambda: list(PM.bs_combine_plain(*a[:11])),
-               max(5, min(100, int(2e8 // (nbytes + 1)))), 1, nbytes,
-               b * N * (L * (4 + BARRETT_OPS) + Lf * (6 + 2 * BARRETT_OPS)))
-        kernels[-1].update(launches=launches["bs_combine"], path="mhe",
-                           launches_at_shape=counts[("bs_combine", key)])
-    crt_shapes = []
-    for key, (x, t) in sorted(rec.args["crt_lift"].items()):
-        _crt_check(torch, rns, kernels, x, t, real["crt_lift"])
-        kernels[-1].update(launches=launches["crt_lift"], path="mhe",
-                           launches_at_shape=counts[("crt_lift", key)])
-        crt_shapes.append([[params.basis.primes.index(int(v)) for v in t[r].tolist()]
-                           for r in ("q", "p")] + [x.shape[1]])
+    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+        torch, rec, launches, params, kernels, "mhe")
     return {
         "preset": preset, "parties": 3, "vectors": nvec, "low_nmod": low_nmod,
         "setup_s": setup_s, "rotation_keys": hub["rot_keys"], "phase_s": t_phase,
         "parties_out": {str(p): {k: v for k, v in res[p].items() if k != "setup"} for p in (1, 2)},
         "launches": launches, "profile": profiled, "k1_total_ms": k1_total,
         "shapes": {name: [list(k) for k in r] for name, r in rec.args.items()},
-        "k1_shapes": k1_shapes,
-        "tree_shapes": {"uniform_mod": k4_shapes, "bs_mask": bs_shapes, "crt_lift": crt_shapes},
+        "k1_shapes": k1_shapes, "tree_shapes": tree_shapes,
     }
+
+
+# ---------------------------------------------------------------------------
+# 7. the secret-sharing domain and the SS<->HE bridge
+
+
+class _HostTimer:
+    """A host profile of one thread: wall seconds spent inside wrapped
+    callables, by category, counted for calls made by `thread` alone (the
+    other party threads run the same code at the same time) and for the
+    outermost call of a category (a nested call of the same category is not
+    counted twice).  cProfile cannot do this: on Python 3.12 it sees the
+    calls of every thread at once."""
+
+    def __init__(self, thread: int):
+        self.thread = thread
+        self.secs: collections.Counter = collections.Counter()
+        self.calls: collections.Counter = collections.Counter()
+        self._depth: collections.Counter = collections.Counter()
+        self._undo: list = []
+
+    def timed(self, fn, cat: str):
+        def call(*a, **k):
+            if threading.get_ident() != self.thread or self._depth[cat]:
+                return fn(*a, **k)
+            self._depth[cat] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.secs[cat] += time.perf_counter() - t0
+                self.calls[cat] += 1
+                self._depth[cat] -= 1
+
+        return call
+
+    def wrap(self, owner, attr: str, cat: str):
+        real = getattr(owner, attr)
+        setattr(owner, attr, self.timed(real, cat))
+        self._undo.append((owner, attr, real))
+
+    def restore(self):
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+        self._undo.clear()
+
+
+class _TimedEngine:
+    """Stands in for the native ring engine: each entry point is timed by a
+    _HostTimer under "native_engine"."""
+
+    def __init__(self, lib, timer: _HostTimer):
+        self._lib, self._timer = lib, timer
+
+    def __getattr__(self, name):
+        return self._timer.timed(getattr(self._lib, name), "native_engine")
+
+
+def _sqrt_host_profile(fn):
+    """fn() under a host profile of the calling thread: the seconds in the
+    native engine, in Beaver partitions, in the ring draws and waiting in
+    the transport's receive, and each as a share of fn's wall time (the
+    categories overlap: a partition's time holds its draws and waits).
+    Returns (fn's result, the profile)."""
+    from sfgwas_tpu_torch.mpc.mpc import MPC
+    from sfgwas_tpu_torch.ops import native_ring
+    from sfgwas_tpu_torch.ops import ring as R
+    from sfgwas_tpu_torch.parallel.transport import LocalTransport
+
+    timer = _HostTimer(threading.get_ident())
+    for owner, attr, cat in (
+        (MPC, "beaver_partition", "beaver_partitions"),
+        (MPC, "beaver_partition_many", "beaver_partitions"),
+        (R.Ring, "rand", "ring_rand"), (R.Ring, "rand_bits", "ring_rand"),
+        (R.SmallField, "rand", "ring_rand"), (R.GF2Ring, "rand", "ring_rand"),
+        (LocalTransport, "recv_obj", "transport_waits"),
+    ):
+        timer.wrap(owner, attr, cat)
+    engine = native_ring.lib()
+    native_ring._LIB = _TimedEngine(engine, timer)
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    finally:
+        wall = time.perf_counter() - t0
+        native_ring._LIB = engine
+        timer.restore()
+    return out, {"wall_s": wall, "seconds": dict(timer.secs), "calls": dict(timer.calls),
+                 "shares": {k: v / wall for k, v in timer.secs.items()}}
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name from /proc/cpuinfo; where that says unknown
+    (a sandboxed host may hide it), its vendor, family, model and
+    stepping."""
+    info: dict = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if ":" in line:
+                k, v = line.split(":", 1)
+                info.setdefault(k.strip(), v.strip())
+    name = info.get("model name", "unknown")
+    if name.lower() != "unknown":
+        return name
+    ids = [f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model", "stepping")
+           if k in info]
+    return "model name unknown; " + ", ".join(ids)
+
+
+def _ss_parties(torch, seed: int, n_var: int, warm_n: int, out_dir: str, device=None):
+    """The SS phase's protocol: three parties (dealer 0, data parties 1 and
+    2, hub 1) through the port's run_parties (256-bit field, 60 data bits,
+    30 fraction bits, boolean shares, native engine) under collective keys
+    (an empty shift set: the conjugation key alone).  A std-inverse round
+    trip as sfgwas_tpu/gwas/assoc.py:383-410 runs it, first at warm_n
+    values, then at n_var (its launches counted and recorded at the
+    kernels' wrappers, party 1's stages timed by synchronized spans,
+    its square root under a host profile and the round trip under
+    torch.profiler), then chol_whiten of a 6 x 6 Gram.  Returns the
+    parties' results, the state party 1 kept (the recorder, the launch
+    counts, its host profile), the variances and the Gram.  device=None is
+    the card; device="cpu" rehearses the protocol at a small n_var."""
+    from sfgwas_tpu_torch.crypto import basics as B
+    from sfgwas_tpu_torch.mpc import linalg as LA
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.mpc import ss_he as SH
+    from sfgwas_tpu_torch.ops import cuda_build
+    from sfgwas_tpu_torch.parallel.simulate import make_shares, reveal_ints, run_parties
+    from sfgwas_tpu_torch.utils import prof
+
+    preset, low_nmod, frac = "PN14QP438", 3, 30
+    rng = np.random.default_rng(seed + 2)
+    var = rng.uniform(0.01, 4.0, size=n_var)  # n_var - 1 SNP variances, the phenotype's last
+    # the example's 5 covariates and the ones column (tests/test_mpc_linalg.py:87-105)
+    Bm = rng.normal(size=(40, 6)) * np.array([1.0, 30.0, 0.05, 3.0, 0.5, 10.0])
+    Bm[:, 0] = 1.0
+    gram = Bm.T @ Bm / 40
+    gate = threading.Barrier(3)
+    cuda = device is None or torch.device(device).type == "cuda"
+    state: dict = {}
+
+    def std_inv(mpc, cps, m: int):
+        """The round trip for the first m SNP variances and the phenotype's:
+        encrypt (each data party its half), aggregate, drop to nmod 3, then
+        cvec_to_ss / ciphertext_to_ss (the guard refreshes first),
+        sqrt_and_sqrt_inverse, ss_to_cmat / ss_to_ciphertext; returns the
+        ciphertexts of 1/sqrt."""
+        slots = cps.slots
+        nct = -(-m // slots)
+        if mpc.pid > 0:
+            ctx = cps.ctx
+            x = np.zeros(m)
+            part = slice(0, m // 2) if mpc.pid == 1 else slice(m // 2, m)
+            x[part] = var[part]
+            y = var[-1] if mpc.pid == 1 else 0.0
+            cts = B.encrypt_float_vector(cps, x) + B.encrypt_float_vector(cps, [y])
+            cts = [ctx.drop_to(ct, low_nmod) for ct in PM.aggregate_cvec(mpc.net, cps, cts)]
+            varx, vary = cts[:-1], cts[-1]
+        else:
+            varx, vary = [None] * nct, None
+
+        def body():
+            varx_ss = SH.cvec_to_ss(mpc, cps, varx, -1, slots * nct)
+            vary_ss = SH.ciphertext_to_ss(mpc, cps, vary, -1, 1)
+            var_ss = np.concatenate([varx_ss[:m], vary_ss[:1]])
+            if mpc.pid == 1 and "profile" in state:
+                stdinv, state["host"] = _sqrt_host_profile(
+                    lambda: mpc.sqrt_and_sqrt_inverse(var_ss)[1])
+            else:
+                stdinv = mpc.sqrt_and_sqrt_inverse(var_ss)[1]
+            stdinvx = mpc.ring.zeros((slots * nct,))
+            stdinvx[:m] = stdinv[:m]
+            cv = SH.ss_to_cmat(mpc, cps, stdinvx[None])
+            cy = SH.ss_to_ciphertext(mpc, cps, stdinv[m : m + 1][None])
+            return (cv[0] + [cy]) if mpc.pid > 0 else None
+
+        return body
+
+    def decode(mpc, cps, cts, m: int):
+        pts = PM.collective_decrypt_many(mpc.net, cps, cts, -1)
+        got = np.concatenate([cps.ctx.decode(pt) for pt in pts[:-1]])[:m]
+        return np.concatenate([got, cps.ctx.decode(pts[-1])[:1]])
+
+    def party(mpc):
+        cps = PM.collective_init(mpc.net, preset, shifts_override=[], device=device)
+        out: dict = {}
+        if mpc.pid > 0:  # the warm-up
+            out["warm"] = decode(mpc, cps, std_inv(mpc, cps, warm_n - 1)(), warm_n - 1)
+        else:
+            std_inv(mpc, cps, warm_n - 1)()
+        gate.wait(timeout=900)
+        if mpc.pid == 1:
+            state["profile"] = True
+            state["rec"] = _collective_recorder()
+            cuda_build.reset_launch_counts()
+        gate.wait(timeout=900)
+        prof.reset()
+        body = std_inv(mpc, cps, n_var - 1)
+        if mpc.pid == 1 and cuda:
+            box = {}
+
+            def traced():
+                gate.wait(timeout=900)
+                t0 = time.time()
+                box["cts"] = body()
+                box["wall"] = time.time() - t0
+                gate.wait(timeout=900)
+
+            out["profile"] = _profile(torch, traced, os.path.join(out_dir, "ss_profile.txt"),
+                                      all_threads=True)
+            cts, out["round_trip_s"] = box["cts"], box["wall"]
+        else:
+            gate.wait(timeout=900)
+            t0 = time.time()
+            cts = body()
+            out["round_trip_s"] = time.time() - t0
+            gate.wait(timeout=900)
+        if mpc.pid > 0:
+            t0 = time.time()
+            with prof.span("decrypt"):
+                out["got"] = decode(mpc, cps, cts, n_var - 1)
+            out["decrypt_s"] = time.time() - t0
+        out["spans"] = prof.totals()
+        gate.wait(timeout=900)
+        if mpc.pid == 1:
+            if cuda:
+                torch.cuda.synchronize()
+            state["launches"] = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+            state["rec"].restore()
+        gate.wait(timeout=900)
+        # chol_whiten of the covariates' Gram
+        sh = make_shares(mpc, [int(round(v * (1 << frac))) for v in gram.reshape(-1)])
+        W = LA.chol_whiten(mpc, sh.reshape(6, 6, -1))
+        rev = reveal_ints(mpc, W.reshape(36, -1))
+        if mpc.pid > 0:
+            p = mpc.ring.modulus
+            out["W"] = np.array([(int(v) - p if int(v) > p // 2 else int(v)) / (1 << frac)
+                                 for v in rev]).reshape(6, 6)
+        return out
+
+    prof.ENABLED, prof.SYNC = True, (torch.cuda.synchronize if cuda else None)
+    try:
+        res = run_parties(3, party, timeout=1500)
+    finally:
+        prof.ENABLED, prof.SYNC = False, None
+        if "rec" in state:
+            state["rec"].restore()
+    return res, state, var, gram
+
+
+def ss_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
+    """Phase 7: the SS domain and the SS<->HE bridge at PN14QP438 on the
+    card, at the example's std-inverse size (n = 99,337: 99,336 SNP
+    variances and the phenotype's), then K1, K4, K5 and K6 against their
+    plain versions at every shape the round trip launched them with.
+    Appends the kernels' records to `kernels`; returns the phase's record."""
+    from sfgwas_tpu_torch.crypto.params import get_params
+
+    n_var, warm_n = 99_337, 8_192
+    params = get_params("PN14QP438")
+    t0 = time.time()
+    res, state, var, gram = _ss_parties(torch, seed, n_var, warm_n, out_dir)
+    t_phase = time.time() - t0
+    rec, launches, host = state["rec"], state["launches"], state["host"]
+    want = 1 / np.sqrt(var)
+    errs, werrs, tri, ortho = {}, {}, {}, {}
+    for pid in (1, 2):
+        r = res[pid]
+        errs[pid] = float(np.max(np.abs(r["got"] - want) / np.maximum(1, want)))
+        wv = np.concatenate([var[: warm_n - 1], var[-1:]])
+        wwant = 1 / np.sqrt(wv)
+        werrs[pid] = float(np.max(np.abs(r["warm"] - wwant) / np.maximum(1, wwant)))
+        W = r["W"]
+        tri[pid] = float(np.abs(W - np.triu(W)).max())
+        ortho[pid] = float(np.abs(W.T @ gram @ W - np.eye(6)).max())
+    hub = res[1]
+    spans = {k: v[0] for k, v in hub["spans"].items()}  # seconds, synchronized
+    profiled = hub["profile"]
+    cpu = f"{_cpu_model()}, {os.cpu_count()} logical cores"
+    line = {
+        "n": n_var, "max_rel_err": errs, "warm_up": {"n": warm_n, "max_rel_err": werrs},
+        "stage_s_party1": spans, "round_trip_s": hub["round_trip_s"],
+        "decrypt_s": hub["decrypt_s"], "sqrt_host_profile_party1": host,
+        "device_busy_ms": profiled["device_busy_ms"], "window_ms": profiled["window_ms"],
+        "idle_share": profiled["idle_share"], "host_readbacks": profiled["host_readbacks"],
+        "device_to_host_copies": profiled["dtoh_copies"],
+        "chol_whiten": {"upper_err": tri, "whiten_err": ortho}, "host_cpu": cpu,
+        "phase_s": t_phase,
+    }
+    _say(f"ss phase: {json.dumps(line)}")
+    _say(f"launches: ss path {json.dumps(launches)}")
+    for pid in (1, 2):
+        if not np.isfinite(errs[pid]) or errs[pid] > 1e-4 or werrs[pid] > 1e-4:
+            raise AssertionError(f"party {pid}: 1/sqrt off by {errs[pid]} (warm-up {werrs[pid]})")
+        if tri[pid] > 1e-6 or not ortho[pid] <= 2e-2:
+            raise AssertionError(f"party {pid}: chol_whiten upper {tri[pid]}, W^T G W - I "
+                                 f"{ortho[pid]}")
+    missing = [k for k in MHE_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the ss path: {missing}")
+    if profiled["host_readbacks"]:
+        raise AssertionError(f"the round trip read {profiled['host_readbacks']} device values "
+                             "back to the host")
+    # the hub's he2ss_pull is the one sanctioned read-back: one a converted ciphertext
+    if profiled["dtoh_copies"] > -(-(n_var - 1) // params.slots) + 1:
+        raise AssertionError(f"the round trip copied {profiled['dtoh_copies']} tensors to the host")
+    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+        torch, rec, launches, params, kernels, "ss")
+    line.update(launches=launches, profile=profiled, k1_total_ms=k1_total, k1_shapes=k1_shapes,
+                tree_shapes=tree_shapes)
+    return line
 
 
 def main() -> int:
@@ -953,12 +1317,15 @@ def main() -> int:
 
     # ---- 6. the MHE collective layer
     mhe = mhe_phase(torch, args.seed, out_dir, kernels)
-    # the shapes --tree times: K1's of one product, K4's of both paths,
-    # bs_mask's of the MHE phase
-    shapes = mhe.pop("tree_shapes")
-    k4_shapes += [s for s in shapes["uniform_mod"] if s not in k4_shapes]
-    shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes,
-              "bs_mask": shapes["bs_mask"], "crt_lift": shapes["crt_lift"]}
+    # ---- 7. the SS domain and the SS<->HE bridge
+    ss = ss_phase(torch, args.seed, out_dir, kernels)
+    # the shapes --tree times: K1's of one product, K4's of all three paths,
+    # bs_mask's and K6's of the MHE and SS phases
+    shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
+              "crt_lift": []}
+    for phase in (mhe, ss):
+        for key, found in phase.pop("tree_shapes").items():
+            shapes[key] += [s for s in found if s not in shapes[key]]
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
         json.dump(shapes, f)
     sass = _sass(cuda_build, ("crp", "bs_share", "crt_lift"), out_dir, "main")
@@ -990,6 +1357,7 @@ def main() -> int:
         "profile": profiled,
         "k1_total_ms": k1_total,
         "mhe": mhe,
+        "ss": ss,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

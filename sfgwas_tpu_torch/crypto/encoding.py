@@ -1,6 +1,8 @@
-"""CKKS encode/decode on the host: the float64 canonical-embedding path
-(counterpart of sfgwas_tpu/crypto/encoding.py without encode_big and
-decode_big, which come with the SS<->HE conversions).
+"""CKKS encode/decode on the host (counterpart of
+sfgwas_tpu/crypto/encoding.py): the float64 canonical-embedding path for
+plain data, and the exact path for the big masked values of the SS<->HE
+conversions (encode_big/decode_big: the double-double FFT of
+utils/ddfloat.py).
 
 Slot layout: slots = N/2, slot j lives at the primitive 2N-th root of unity
 with exponent 5^j mod 2N; conjugate pairs are filled for real vectors.
@@ -8,9 +10,12 @@ with exponent 5^j mod 2N; conjugate pairs are filled for real vectors.
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 
 from ..ops import rns
+from ..utils.ddfloat import dd_embed, dd_embed_inv
 from .params import CkksParams
 
 
@@ -77,3 +82,19 @@ class Encoder:
         ints = rns.rns_to_ints(np.asarray(poly_coeff), self.params.q_primes[:nmod])
         a = np.array([float(x) for x in ints]) / scale
         return np.real(self.embed(a))
+
+    def encode_big(self, int_values: List[int], scale: float, nmod: int) -> np.ndarray:
+        """Exact-ish encode of large integers (up to ~2^100) into slots at the
+        given scale -> RNS poly [nmod, N] uint32 (coeff domain); used by the
+        SS->HE conversion."""
+        z = [0] * self.slots
+        for i, v in enumerate(int_values):
+            z[i] = int(v)
+        coeff_ints = dd_embed_inv(self, z, scale)
+        return rns.ints_to_rns(coeff_ints, self.params.q_primes[:nmod])
+
+    def decode_big(self, poly_coeff, nmod: int, scale: float) -> List[int]:
+        """Decode to (rounded) big integers; the absolute error stays O(1)
+        even for ~2^100-magnitude slot values."""
+        ints = rns.rns_to_ints(np.asarray(poly_coeff), self.params.q_primes[:nmod])
+        return dd_embed(self, [int(x) for x in ints], scale)

@@ -345,6 +345,129 @@ def rns_to_ints(res, primes) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Signed 24-bit word arithmetic on the host: the statistical masks of the
+# SS<->HE conversions (mpc/ss_he.py) and the exact CRT lift, the host oracle
+# of kernel K6
+
+_WB = 24  # word bits; products q_i(25b) * word(24b) < 2^49, sums of ~20 fit
+
+
+def _int_to_words(v: int, nwords: int) -> np.ndarray:
+    return np.array(
+        [(v >> (_WB * k)) & ((1 << _WB) - 1) for k in range(nwords)], dtype=np.int64
+    )
+
+
+def crt_lift_centered(res: np.ndarray, primes_src, dst_primes) -> np.ndarray:
+    """res: [l, N] residues mod primes_src -> centered value v (|v| < Q/2)
+    re-reduced mod each of dst_primes: returns [len(dst), N] uint32.
+
+    Exact: v = sum_i res_i * T_i mod Q computed in 24-bit words with
+    conditional big-subtractions of Q, then centered and folded mod the
+    destination primes."""
+    res = np.asarray(res, dtype=np.int64)
+    l, n = res.shape
+    Q = 1
+    for q in primes_src[:l]:
+        Q *= q
+    # v = sum_i res_i * T_i can reach (sum_i q_i) * Q ~ 2^26 * l * Q, so the
+    # word array and the shifted-subtract ladder must cover that headroom
+    slack = max(p.bit_length() for p in primes_src[:l]) + l.bit_length() + 2
+    nwords = (Q.bit_length() + slack + _WB) // _WB + 1
+    Tw = np.zeros((l, nwords), dtype=np.int64)
+    for i in range(l):
+        qi = primes_src[i]
+        Ti = (Q // qi) * pow(Q // qi, -1, qi) % Q
+        Tw[i] = _int_to_words(Ti, nwords)
+    # v_words[k, j] = sum_i res[i, j] * Tw[i, k]   (< l * 2^25 * 2^24 < 2^54)
+    vw = np.einsum("ij,ik->kj", res, Tw)  # [nwords, N] int64
+    vw = _word_carry(vw)
+    # binary shifted-subtract ladder: v < 2^slack * Q -> v mod Q
+    Qw = _int_to_words(Q, nwords)
+    for s in range(slack, -1, -1):
+        vw = _cond_sub_words(vw, _int_to_words(Q << s, nwords))
+    # centered: if v >= Q/2: v -= Q
+    half_w = _int_to_words(Q // 2, nwords)
+    ge = _ge_words(vw, half_w)
+    vw2 = _sub_words(vw, Qw)  # may go negative; tracked in signed words
+    vw = np.where(ge[None, :], vw2, vw)
+    # fold words into each destination prime
+    out = np.zeros((len(dst_primes), n), dtype=np.uint32)
+    for d, qd in enumerate(dst_primes):
+        pw = np.array(
+            [pow(1 << (_WB * k), 1, qd) for k in range(nwords)], dtype=np.int64
+        )
+        acc = (vw * pw[:, None]) % qd  # numpy's % is floored: signed words land in [0, qd)
+        s = np.sum(acc, axis=0) % qd
+        out[d] = s.astype(np.uint32)
+    return out
+
+
+def _word_carry(vw: np.ndarray) -> np.ndarray:
+    mask = (1 << _WB) - 1
+    for k in range(vw.shape[0] - 1):
+        c = vw[k] >> _WB
+        vw[k] &= mask
+        vw[k + 1] += c
+    return vw
+
+
+def _cond_sub_words(vw: np.ndarray, Qw: np.ndarray) -> np.ndarray:
+    y = vw - Qw[:, None]
+    # exact borrow propagation
+    borrow = np.zeros(vw.shape[1], dtype=np.int64)
+    out = np.empty_like(y)
+    for k in range(vw.shape[0]):
+        t = y[k] + borrow
+        borrow = t >> _WB
+        out[k] = t - (borrow << _WB)
+    ge = borrow == 0  # no final borrow -> v >= Q
+    return np.where(ge[None, :], out, vw)
+
+
+def _sub_words(vw: np.ndarray, Qw: np.ndarray) -> np.ndarray:
+    y = vw - Qw[:, None]
+    borrow = np.zeros(vw.shape[1], dtype=np.int64)
+    out = np.empty_like(y)
+    for k in range(vw.shape[0]):
+        t = y[k] + borrow
+        borrow = t >> _WB
+        out[k] = t - (borrow << _WB)
+    # leave the (negative) top borrow in the top word (signed representation)
+    out[-1] += borrow << _WB
+    return out
+
+
+def _ge_words(vw: np.ndarray, bw: np.ndarray) -> np.ndarray:
+    y = vw - bw[:, None]
+    borrow = np.zeros(vw.shape[1], dtype=np.int64)
+    for k in range(vw.shape[0]):
+        t = y[k] + borrow
+        borrow = t >> _WB
+    return borrow == 0
+
+
+def words_sample_centered(rng, bound_bits: int, n: int):
+    """Sample n uniform ints in [-2^(b-1), 2^(b-1)) as word arrays
+    [nwords, n] (signed, last word carries the sign after centering)."""
+    nwords = (bound_bits + _WB - 1) // _WB
+    top_bits = bound_bits - _WB * (nwords - 1)
+    w = rng.integers(0, 1 << _WB, size=(nwords, n), dtype=np.int64)
+    w[-1] &= (1 << top_bits) - 1
+    # subtract 2^(b-1): flip the top bit region
+    w[-1] -= 1 << (top_bits - 1)
+    return w
+
+
+def words_mod_prime(w: np.ndarray, q: int) -> np.ndarray:
+    """Signed word array [nwords, n] -> residues mod q (uint32)."""
+    nwords = w.shape[0]
+    pw = np.array([pow(1 << (_WB * k), 1, q) for k in range(nwords)], dtype=np.int64)
+    acc = (w * pw[:, None]) % q
+    return (np.sum(acc, axis=0) % q).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
 # Kernel K6: the device CRT lift of protocol-bounded values
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int

@@ -490,3 +490,54 @@ def test_concurrent_first_use_builds_once_and_counts_every_launch(dev, monkeypat
     assert builds == [[name]]
     assert rns.CRT_LIFT.launches == before + 60
     assert all(torch.equal(o, want) for o in outs)
+
+
+def test_ss_he_round_trip_on_card_matches_cpu(dev):
+    """The TEST8 SS<->HE round trip of three parties (ss_to_cmat, a drop
+    below the masked decode's floor, cmat_to_ss through the guard's
+    collective bootstrap, the reveal) on the card gives the ciphertexts and
+    shares of the port's CPU run under the same keys, PRG keys and
+    generators, and launches K1, K4, K5 and K6 on the way."""
+    from sfgwas_tpu_torch import interop
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.mpc import ss_he as SH
+    from sfgwas_tpu_torch.ops import ring as R
+    from sfgwas_tpu_torch.parallel.simulate import make_shares, reveal_ints, run_parties
+
+    keys = run_parties(3, lambda mpc: interop.bundle_arrays(
+        PM.collective_init(mpc.net, "TEST8", shifts_override=[1], device="cpu")))
+    vals = np.random.default_rng(4).normal(scale=50.0, size=(2, 150))
+    enc = [int(v) % R.P256 for v in np.round(vals * (1 << 30)).astype(np.int64).reshape(-1)]
+
+    def run(device):
+        def fn(mpc):
+            mpc.rand.table[mpc.pid] = np.random.Generator(np.random.Philox(key=[9, mpc.pid]))
+            ctx = PC.CkksContext(get_params("TEST8"), device=device)
+            cps = interop.crypto_params(ctx, enc_rng=np.random.default_rng(100 + mpc.pid),
+                                        **keys[mpc.pid])
+            cm = SH.ss_to_cmat(mpc, cps, make_shares(mpc, enc).reshape(2, 150, -1))
+            cts = None
+            if mpc.pid > 0:
+                cts = [(rns.to_u32(ct.c0), rns.to_u32(ct.c1)) for row in cm for ct in row]
+                cm = [[ctx.drop_to(ct, 4) for ct in row] for row in cm]
+            back = SH.cmat_to_ss(mpc, cps, cm, -1, 150)
+            return cts, back, reveal_ints(mpc, back.reshape(300, -1))
+
+        return run_parties(3, fn)
+
+    cpu = run("cpu")
+    cuda_build.reset_launch_counts()
+    card = run(dev)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+    for k in ("ntt_fwd", "ntt_inv", "uniform_mod", "bs_mask", "bs_combine", "crt_lift"):
+        assert launched[k] > 0, k
+    for pid in range(3):
+        np.testing.assert_array_equal(card[pid][1], cpu[pid][1])
+    for pid in (1, 2):
+        for (a0, a1), (b0, b1) in zip(card[pid][0], cpu[pid][0]):
+            np.testing.assert_array_equal(a0, b0)
+            np.testing.assert_array_equal(a1, b1)
+        got = np.array([(int(v) - R.P256 if int(v) > R.P256 // 2 else int(v)) / (1 << 30)
+                        for v in card[pid][2]])
+        assert np.abs(got - vals.reshape(-1)).max() < 1e-3

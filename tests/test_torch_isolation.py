@@ -45,7 +45,9 @@ def test_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
     assert len(MODULES) >= 12
-    for m in ("mpc.prg", "parallel.transport", "parallel.simulate", "mpc.mhe", "ops.threefry"):
+    for m in ("mpc.prg", "parallel.transport", "parallel.simulate", "mpc.mhe", "ops.threefry",
+              "ops.ring", "ops.native_ring", "mpc.mpc", "mpc.boolean", "mpc.linalg",
+              "mpc.ss_he", "utils.ddfloat"):
         assert "sfgwas_tpu_torch." + m in MODULES
 
 
