@@ -79,15 +79,34 @@ Phases (any failed check raises; the exit code is then nonzero):
     K1, K4, K5 and K6 are held bit for bit against their plain versions at
     every shape the timed round trip launched them with, recorded at their
     wrappers, and timed;
- 8. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+ 8. the CholeskyQR2 covariate basis at PN14QP438: three parties as
+    threads on the card (run_parties as in phase 7) under collective keys
+    from collective_init with the default shift set (303 rotation keys and
+    the relinearisation key); each data party holds 1000 individuals with
+    5 covariates from --seed (column scales 1, 20, 0.1, 50, 0.3), and
+    compute_combined_q (cholqr2 with the ones column: 6 columns, 21 Gram
+    pairs, 2 passes) runs once as a warm-up, once timed (every launch count
+    set to 0 just before it and read right after it; party 1's spans
+    cholqr_gram, cholqr_ss, cholqr_recombine, he2ss, ss2he and bootstrap,
+    synchronized) and once under torch.profiler over all threads (device
+    busy and idle share, device ms by kernel and of the labelled plain-torch
+    programs of ROADMAP B12-B14, device -> host copies).  Each data party
+    decrypts its rows of the timed Q collectively: Q^T Q within QR_TOL of I
+    and Q within QR_TOL of numpy's QR of [ones | covariates] (diag(R) > 0),
+    after dividing by sqrt(2000), every ciphertext at one (nmod, scale).
+    K1, K3 (the relinearisation and the rotation ladder), K4, K5 and K6
+    are held bit for bit against their plain versions at every shape the
+    timed call launched them with, recorded at their wrappers, and timed;
+ 9. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits nonzero and prints no result.
 Writes the record to chiprun_out/chip_smoke.json, the shapes --tree times
 to chiprun_out/shapes.json, the profiler's tables to
-chiprun_out/mm_profile.txt, chiprun_out/bs_profile.txt and
-chiprun_out/ss_profile.txt and the SASS listings to
+chiprun_out/mm_profile.txt, chiprun_out/bs_profile.txt,
+chiprun_out/ss_profile.txt and chiprun_out/qr_profile.txt and the SASS
+listings to
 chiprun_out/sass_main_*.txt.
 
 --tree DIR --shapes FILE times only K1 (at one product's shapes), K4 (at
@@ -209,11 +228,13 @@ def _same(torch, a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
-def _profile(torch, fn, path: str, all_threads: bool = False) -> dict:
-    """One call of fn under torch.profiler: device time by kernel name, the
-    device's busy share of the traced window, and the full table in `path`;
-    all_threads traces the host operations of every thread (party threads).
-    Raises when the trace holds no device kernel."""
+def _profile(torch, fn, path: str, all_threads: bool = False, labels=()) -> dict:
+    """One call of fn under torch.profiler: device time by kernel name and
+    by port kernel (DEVICE_NAMES), the device's busy share of the traced
+    window, and the full table in `path`; all_threads traces the host
+    operations of every thread (party threads); `labels` names
+    record_function ranges whose device time (the kernels launched inside
+    them) is summed.  Raises when the trace holds no device kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     kw = {}
@@ -226,7 +247,10 @@ def _profile(torch, fn, path: str, all_threads: bool = False) -> dict:
         fn()
         torch.cuda.synchronize()
     events = list(prof.events())
-    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    # a labelled range also appears on the device's timeline, spanning its
+    # first to its last kernel, gaps included: not a kernel
+    dev = [e for e in events if e.device_type == cuda and e.name not in labels]
     if not dev:
         raise AssertionError("torch.profiler traced no device kernel")
     by_name: dict = {}
@@ -248,7 +272,20 @@ def _profile(torch, fn, path: str, all_threads: bool = False) -> dict:
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    port_ms = {sym: sum(v for k, v in by_name.items() if re.search(pat, k)) / 1e3
+               for sym, pat in DEVICE_NAMES.items()}
+    labelled = {}
+    for label in labels:  # the host-side range: the device time of the kernels it launched
+        hits = [e for e in events if e.name == label and e.device_type != cuda]
+        labelled[label] = {
+            "calls": len(hits),
+            "device_ms": sum(getattr(e, "device_time_total", 0.0) for e in hits) / 1e3,
+        }
+    ops = [(a.key, a.self_device_time_total / 1e3) for a in prof.key_averages()
+           if a.key.startswith("aten::")]
     return {
+        "port_kernel_ms": port_ms, "labelled_ms": labelled,
+        "aten_self_device_ms": sorted(ops, key=lambda kv: -kv[1])[:12],
         "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "device_sum_ms": sum(by_name.values()) / 1e3, "idle_share": 1 - busy / window,
         "kernels": len(dev), "top_ms": [[k[:80], v / 1e3] for k, v in top[:15]],
@@ -314,37 +351,52 @@ def _k1_rows(torch, cuda_ntt, rns, basis, shapes, dev, kernels, per="launches_pe
     return total
 
 
-class _Recorder:
+class _Patches:
+    """Attributes of modules or classes replaced by wrappers of their real
+    values; restore() puts the real values back, last patch first."""
+
+    def __init__(self):
+        self._undo: list = []
+
+    def patch(self, owner, attr: str, make):
+        """Set owner.attr to make(real) and return the real value."""
+        real = getattr(owner, attr)
+        setattr(owner, attr, make(real))
+        self._undo.append((owner, attr, real))
+        return real
+
+    def restore(self):
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+        self._undo.clear()
+
+
+class _Recorder(_Patches):
     """Wraps kernel wrappers that their callers look up in the module at
     call time: keeps the arguments of the first launch at each key and
     counts launches per key, under a lock (the parties launch from their
     threads).  restore() puts the real wrappers back."""
 
     def __init__(self):
+        super().__init__()
         self.args: dict = {}
         self.counts: collections.Counter = collections.Counter()
         self.real: dict = {}
-        self._undo: list = []
         self._lock = threading.Lock()
 
     def wrap(self, module, attr: str, name: str, key_of):
-        real = getattr(module, attr)
-        self.real[name], self.args[name] = real, {}
+        def make(real):
+            def wrapped(*a):
+                k = key_of(*a)
+                with self._lock:
+                    self.args[name].setdefault(k, a)
+                    self.counts[(name, k)] += 1
+                return real(*a)
 
-        def wrapped(*a):
-            k = key_of(*a)
-            with self._lock:
-                self.args[name].setdefault(k, a)
-                self.counts[(name, k)] += 1
-            return real(*a)
+            return wrapped
 
-        setattr(module, attr, wrapped)
-        self._undo.append((module, attr, real))
-
-    def restore(self):
-        for module, attr, real in reversed(self._undo):
-            setattr(module, attr, real)
-        self._undo.clear()
+        self.args[name] = {}
+        self.real[name] = self.patch(module, attr, make)
 
     def k1_shapes(self) -> list:
         """[inverse, rows, shape, launches] of every K1 key recorded."""
@@ -354,6 +406,43 @@ class _Recorder:
 
 def _k1_key(x, basis, rows, inverse=False):
     return bool(inverse), tuple(rows), tuple(x.shape)
+
+
+def _k3_check(torch, C, kernels, name, replaces, ext, k0, k1, q, mu, logn, launch, reps, preps):
+    """K3 (`launch`) against its plain version on ext [G, S, J, X, N] and
+    keys [G, Bk, J, X, N]."""
+    G, S, J, X, N = ext.shape
+    Bk = k0.shape[1]
+    nbytes = 4 * N * (G * S * J * X + 2 * G * Bk * J * X + 2 * G * S * Bk * X)
+    macs = 2 * G * S * Bk * J * X * N
+    _check(torch, kernels, name, "ks_digit_product", "sfgwas_tpu_torch/csrc/ks_digit.cu",
+           replaces, [G, S, Bk, J, X, N], lambda: list(launch(ext, k0, k1, q, mu, logn)),
+           lambda: list(C.ks_digit_product_plain(ext, k0, k1, q)), reps, preps, nbytes, 2 * macs)
+
+
+# The port's callers of K3, innermost first where one calls another, each
+# with the keyswitch of the reference it stands for and the line of that
+# keyswitch's digit contraction in sfgwas_tpu/crypto/ckks.py.
+K3_SITES = {
+    "_keyswitch_decomposed_arr": ("keyswitch", 820),
+    "keyswitch_decomposed_b": ("keyswitch, a key each", 875),
+    "_relin_b": ("relinearisation", 628),
+    "hoisted_rotations_all": ("hoisted", 993),
+    "rotate_grouped_b": ("grouped rotations", 1050),
+}
+
+
+def _k3_site() -> str:
+    """The caller of the K3 launch being recorded: the first K3_SITES name
+    on the stack, in the table's order."""
+    names, f = set(), sys._getframe(1)
+    while f is not None and len(names) < 16:
+        names.add(f.f_code.co_name)
+        f = f.f_back
+    for site in K3_SITES:
+        if site in names:
+            return site
+    raise AssertionError(f"K3 launched from no known site: {sorted(names)}")
 
 
 def _k4_check(torch, C, kernels, q, mu, sd, idx, b, logn, launch):
@@ -530,15 +619,19 @@ def tree_only(torch, root: str, shapes_path: str) -> int:
     return 0
 
 
-def _collective_recorder() -> "_Recorder":
+def _collective_recorder(k3: bool = False) -> "_Recorder":
     """A recorder at the wrappers of the kernels the collective protocols
-    launch: K1, K4, K5 (bs_mask, bs_combine) and K6."""
+    launch: K1, K4, K5 (bs_mask, bs_combine) and K6, and K3 where asked."""
     from sfgwas_tpu_torch.crypto import ckks as C
     from sfgwas_tpu_torch.mpc import mhe as PM
     from sfgwas_tpu_torch.ops import cuda_ntt, rns
 
     rec = _Recorder()
     rec.wrap(cuda_ntt, "ntt_b_kernel", "k1", _k1_key)
+    if k3:
+        rec.wrap(C, "ks_digit_product", "ks_digit_product",
+                 lambda ext, k0, k1, q, mu, logn: (_k3_site(),) + tuple(ext.shape)
+                 + (k0.shape[1],))
     rec.wrap(C, "uniform_mod", "uniform_mod", lambda q, mu, sd, idx, b, logn: (b, q.shape[0]))
     rec.wrap(PM, "bs_mask", "bs_mask",
              lambda tl, tf, sd, idx, b, nwords, top, logn: (b, tl["q"].shape[0],
@@ -579,6 +672,13 @@ def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str):
     k4_shapes = _k4_rows(torch, C, rec, params.basis, kernels)
     for k in kernels[first:]:
         k["launches"], k["path"] = launches["uniform_mod"], path
+    for key, (ext, k0, k1, q, mu, logn) in sorted(rec.args.get("ks_digit_product", {}).items()):
+        site, line = K3_SITES[key[0]]
+        _k3_check(torch, C, kernels, f"ks_digit_product ({site})",
+                  f"sfgwas_tpu/crypto/ckks.py:{line}", ext, k0, k1, q, mu, logn,
+                  real["ks_digit_product"], 10, 1)
+        kernels[-1].update(launches=launches["ks_digit_product"], path=path,
+                           launches_at_shape=counts[("ks_digit_product", key)])
     bs_shapes = []
     for key, a in sorted(rec.args["bs_mask"].items()):
         tl, tf, sd, idx, b, nwords, top, logn = a
@@ -751,7 +851,7 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
 # 7. the secret-sharing domain and the SS<->HE bridge
 
 
-class _HostTimer:
+class _HostTimer(_Patches):
     """A host profile of one thread: wall seconds spent inside wrapped
     callables, by category, counted for calls made by `thread` alone (the
     other party threads run the same code at the same time) and for the
@@ -760,11 +860,11 @@ class _HostTimer:
     calls of every thread at once."""
 
     def __init__(self, thread: int):
+        super().__init__()
         self.thread = thread
         self.secs: collections.Counter = collections.Counter()
         self.calls: collections.Counter = collections.Counter()
         self._depth: collections.Counter = collections.Counter()
-        self._undo: list = []
 
     def timed(self, fn, cat: str):
         def call(*a, **k):
@@ -782,14 +882,7 @@ class _HostTimer:
         return call
 
     def wrap(self, owner, attr: str, cat: str):
-        real = getattr(owner, attr)
-        setattr(owner, attr, self.timed(real, cat))
-        self._undo.append((owner, attr, real))
-
-    def restore(self):
-        for owner, attr, real in reversed(self._undo):
-            setattr(owner, attr, real)
-        self._undo.clear()
+        self.patch(owner, attr, lambda real: self.timed(real, cat))
 
 
 class _TimedEngine:
@@ -1058,6 +1151,230 @@ def ss_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# 8. the CholeskyQR2 covariate basis
+
+QR_PATH = ("ntt_fwd", "ntt_inv", "ks_digit_product", "uniform_mod", "bs_mask", "bs_combine",
+           "crt_lift")
+# the plain-torch programs of the QR path, labelled in its profile: (owner
+# module path, attribute, label); ROADMAP B12-B14
+PLAIN_PROGRAMS = (
+    ("sfgwas_tpu_torch.crypto.ckks:CkksContext", "_tensor_product", "B12 tensor product"),
+    ("sfgwas_tpu_torch.crypto.ckks:CkksContext", "_extend_multi", "B12 ModUp basis extension"),
+    ("sfgwas_tpu_torch.crypto.ckks:CkksContext", "_extend",
+     "B12 ModDown/rescale basis extension"),
+    ("sfgwas_tpu_torch.crypto.ckks:CkksContext", "mul_plain_many_b", "B13 mul_plain_many_b"),
+    ("sfgwas_tpu_torch.crypto.ckks:CkksContext", "mul_plain_pairs_sum",
+     "B13 mul_plain_pairs_sum"),
+    ("sfgwas_tpu_torch.crypto.basics", "_segsum_mod", "B14 _segsum_mod"),
+)
+
+
+class _Labelled(_Patches):
+    """Wraps the PLAIN_PROGRAMS in torch.profiler.record_function ranges
+    while it is entered, so a trace attributes their device time."""
+
+    def __init__(self, torch):
+        super().__init__()
+        self.torch = torch
+
+    def __enter__(self):
+        import importlib
+
+        for owner_path, attr, label in PLAIN_PROGRAMS:
+            mod, _, cls = owner_path.partition(":")
+            owner = importlib.import_module(mod)
+            owner = getattr(owner, cls) if cls else owner
+
+            def make(real, _label=label):
+                def wrapped(*a, **k):
+                    with self.torch.profiler.record_function(_label):
+                        return real(*a, **k)
+
+                return wrapped
+
+            self.patch(owner, attr, make)
+        return self
+
+    def __exit__(self, *exc):
+        self.restore()
+
+
+def _qr_parties(torch, seed: int, out_dir: str, n_loc: int = 1000, preset: str = "PN14QP438",
+                device=None):
+    """The QR phase's protocol: three parties (dealer 0, data parties 1 and
+    2, hub 1) through the port's run_parties (256-bit field, 60 data bits,
+    30 fraction bits, boolean shares, native engine) under collective keys
+    at `preset` with the default shift set and the relinearisation key.
+    Each data party holds n_loc individuals with 5 covariates drawn from
+    the seed at column scales 1, 20, 0.1, 50 and 0.3; compute_combined_q
+    (cholqr2, with the ones column) runs once as a warm-up, once timed
+    (every launch count set to 0 just before, read right after, the
+    kernels' inputs recorded at their wrappers, party 1's spans
+    synchronized) and once under torch.profiler over all threads with the
+    plain-torch programs labelled; then each data party's rows of the timed
+    Q are decrypted collectively.  Returns the parties' results, the state
+    party 1 kept and the covariates.  device=None is the card; device="cpu"
+    rehearses the protocol (at a small preset)."""
+    from sfgwas_tpu_torch.gwas.assoc import compute_combined_q
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.ops import cuda_build
+    from sfgwas_tpu_torch.parallel.simulate import run_parties
+    from sfgwas_tpu_torch.utils import prof
+
+    ncov = 5
+    rng = np.random.default_rng(seed + 3)
+    cov = rng.normal(size=(2 * n_loc, ncov)) * np.array([1.0, 20.0, 0.1, 50.0, 0.3])
+    nrows_all = [0, n_loc, n_loc]
+    gate = threading.Barrier(3)
+    cuda = device is None or torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    state: dict = {}
+
+    def basis(mpc, cps):
+        c = cov[(mpc.pid - 1) * n_loc : mpc.pid * n_loc] if mpc.pid > 0 else ncov
+        return compute_combined_q(mpc, cps, c, None, nrows_all, False, qr_method="cholqr2")[0]
+
+    def party(mpc):
+        pid = mpc.pid
+        t0 = time.time()
+        cps = PM.collective_init(mpc.net, preset, device=device)
+        sync()
+        out: dict = {"keygen_s": time.time() - t0, "rot_keys": len(cps.rot_keys)}
+        t0 = time.time()
+        basis(mpc, cps)  # the warm-up
+        sync()
+        out["warm_up_s"] = time.time() - t0
+        gate.wait(timeout=900)
+        if pid == 1:
+            state["rec"] = _collective_recorder(k3=True)
+            cuda_build.reset_launch_counts()
+            prof.ENABLED, prof.SYNC = True, (torch.cuda.synchronize if cuda else None)
+        gate.wait(timeout=900)
+        prof.reset()
+        t0 = time.time()
+        Q = basis(mpc, cps)
+        sync()
+        out["call_s"] = time.time() - t0
+        out["spans"] = prof.totals()
+        gate.wait(timeout=900)
+        if pid == 1:
+            state["launches"] = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+            state["rec"].restore()
+            prof.ENABLED, prof.SYNC = False, None
+        gate.wait(timeout=900)
+        # the traced call
+        if pid == 1 and cuda:
+            def traced():
+                gate.wait(timeout=900)
+                basis(mpc, cps)
+                gate.wait(timeout=900)
+
+            with _Labelled(torch):
+                out["profile"] = _profile(torch, traced, os.path.join(out_dir, "qr_profile.txt"),
+                                          all_threads=True, labels=[p[2] for p in PLAIN_PROGRAMS])
+        else:
+            gate.wait(timeout=900)
+            basis(mpc, cps)
+            gate.wait(timeout=900)
+        # each data party's rows of Q, decrypted collectively
+        if pid > 0:
+            out["levels"] = sorted({(ct.nmod, ct.scale) for col in Q for ct in col})
+            out["ncols"] = len(Q)
+            blocks = []
+            for p in (1, 2):
+                nct = -(-nrows_all[p] // cps.slots)
+                cts = [ct for col in Q for ct in col] if pid == p else [None] * (len(Q) * nct)
+                pts = PM.collective_decrypt_many(mpc.net, cps, cts, p)
+                vals = np.stack([cps.ctx.decode(pt) for pt in pts]).reshape(len(Q), -1)
+                blocks.append(vals[:, : nrows_all[p]].T)
+            out["Q"] = np.concatenate(blocks)
+        return out
+
+    try:
+        res = run_parties(3, party, timeout=1500)
+    finally:
+        prof.ENABLED, prof.SYNC = False, None
+        if "rec" in state:
+            state["rec"].restore()
+    return res, state, cov
+
+
+# Phase 8's limit on |Q^T Q - I| and |Q - numpy's Q|.  An entry of Q is
+# about 1/sqrt(2000) = 0.022, so the reference tests' 2e-2 would pass a Q
+# off in scale by a percent; CKKS at PN14QP438 leaves errors near 1e-8, and
+# 1e-5 still fails a scale error of a permille (2.2e-5 an entry).
+QR_TOL = 1e-5
+
+
+def qr_check(res, cov) -> dict:
+    """The covariate basis against numpy at each data party: Q^T Q - I and
+    Q - numpy's QR of [ones | covariates] (diag(R) > 0), Q scaled back by
+    1/sqrt(N), and the (level, scale) pairs of Q's ciphertexts."""
+    n = cov.shape[0]
+    q, r = np.linalg.qr(np.column_stack([np.ones(n), cov]))
+    q = q * np.sign(np.diag(r))
+    out = {}
+    for pid in (1, 2):
+        Q = res[pid]["Q"] / np.sqrt(n)
+        out[pid] = {
+            "ortho_err": float(np.abs(Q.T @ Q - np.eye(Q.shape[1])).max()),
+            "qr_err": float(np.abs(Q - q).max()), "finite": bool(np.isfinite(Q).all()),
+            "levels": res[pid]["levels"], "ncols": res[pid]["ncols"],
+        }
+    return out
+
+
+def qr_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
+    """Phase 8: the CholeskyQR2 covariate basis (compute_combined_q) at
+    PN14QP438 for three parties on the card at the example's size, then K1,
+    K3, K4, K5 and K6 against their plain versions at every shape the timed
+    call launched them with.  Appends the kernels' records to `kernels`;
+    returns the phase's record."""
+    from sfgwas_tpu_torch.crypto.params import get_params
+
+    params = get_params("PN14QP438")
+    t0 = time.time()
+    res, state, cov = _qr_parties(torch, seed, out_dir)
+    t_phase = time.time() - t0
+    rec, launches = state["rec"], state["launches"]
+    hub = res[1]
+    checks = qr_check(res, cov)
+    spans = {k: v[0] for k, v in hub["spans"].items()}  # seconds, synchronized
+    profiled = hub["profile"]
+    line = {
+        "individuals": cov.shape[0], "covariates": cov.shape[1], "checks": checks,
+        "keygen_s": hub["keygen_s"], "rotation_keys": hub["rot_keys"],
+        "warm_up_s": hub["warm_up_s"], "call_s_party1": hub["call_s"],
+        "call_s_party2": res[2]["call_s"], "span_s_party1": spans,
+        "device_busy_ms": profiled["device_busy_ms"], "window_ms": profiled["window_ms"],
+        "idle_share": profiled["idle_share"], "host_readbacks": profiled["host_readbacks"],
+        "device_to_host_copies": profiled["dtoh_copies"], "labelled_ms": profiled["labelled_ms"],
+        "phase_s": t_phase,
+    }
+    _say(f"qr phase: {json.dumps(line)}")
+    _say(f"launches: qr path {json.dumps(launches)}")
+    for pid in (1, 2):
+        c = checks[pid]
+        if not c["finite"] or not c["ortho_err"] <= QR_TOL or not c["qr_err"] <= QR_TOL:
+            raise AssertionError(f"party {pid}: Q^T Q - I {c['ortho_err']}, Q - numpy "
+                                 f"{c['qr_err']}")
+        if len(c["levels"]) != 1 or c["ncols"] != 6:
+            raise AssertionError(f"party {pid}: {c['ncols']} columns at (nmod, scale) "
+                                 f"{c['levels']}")
+    missing = [k for k in QR_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the qr path: {missing}")
+    if profiled["host_threads"] < 2:
+        raise AssertionError("the QR's profile traced one thread: party 2's host operations "
+                             "are missing")
+    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+        torch, rec, launches, params, kernels, "qr")
+    line.update(launches=launches, profile=profiled, k1_total_ms=k1_total, k1_shapes=k1_shapes,
+                tree_shapes=tree_shapes)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1255,16 +1572,10 @@ def main() -> int:
     mu_ext = rns.barrett_mu64(params.basis, ext_rows, dev)
 
     def ks_check(name, ext, k0, k1, reps, preps):
-        G, S, J, X, _ = ext.shape
-        Bk = k0.shape[1]
-        nbytes = 4 * N * (G * S * J * X + 2 * G * Bk * J * X + 2 * G * S * Bk * X)
-        macs = 2 * G * S * Bk * J * X * N
-        check(name, "ks_digit_product", "sfgwas_tpu_torch/csrc/ks_digit.cu",
-              "sfgwas_tpu/crypto/ckks.py:993" if Bk > 1 else "sfgwas_tpu/crypto/ckks.py:1050",
-              [G, S, Bk, J, X, N],
-              lambda: C.ks_digit_product(ext, k0, k1, q_ext, mu_ext, logn),
-              lambda: C.ks_digit_product_plain(ext, k0, k1, q_ext), reps, preps,
-              nbytes, 2 * macs)
+        _k3_check(torch, C, kernels, name,
+                  "sfgwas_tpu/crypto/ckks.py:993" if k0.shape[1] > 1
+                  else "sfgwas_tpu/crypto/ckks.py:1050",
+                  ext, k0, k1, q_ext, mu_ext, logn, C.ks_digit_product, reps, preps)
 
     ext = ctx.decompose_ntt_b(C1s, nmod).contiguous()[None]
     ks_check("ks_digit_product (hoisted)", ext, ik0[None], ik1[None], 10, 2)
@@ -1319,11 +1630,13 @@ def main() -> int:
     mhe = mhe_phase(torch, args.seed, out_dir, kernels)
     # ---- 7. the SS domain and the SS<->HE bridge
     ss = ss_phase(torch, args.seed, out_dir, kernels)
+    # ---- 8. the CholeskyQR2 covariate basis
+    qr = qr_phase(torch, args.seed, out_dir, kernels)
     # the shapes --tree times: K1's of one product, K4's of all three paths,
     # bs_mask's and K6's of the MHE and SS phases
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
               "crt_lift": []}
-    for phase in (mhe, ss):
+    for phase in (mhe, ss, qr):
         for key, found in phase.pop("tree_shapes").items():
             shapes[key] += [s for s in found if s not in shapes[key]]
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
@@ -1358,6 +1671,7 @@ def main() -> int:
         "k1_total_ms": k1_total,
         "mhe": mhe,
         "ss": ss,
+        "qr": qr,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -1,17 +1,19 @@
-"""RNS-CKKS in PyTorch: the subset of sfgwas_tpu/crypto/ckks.py that the
-encrypted genotype product runs (keygen, encode/encrypt/decrypt, rescale,
-the hybrid keyswitch and the batched hoisted and grouped rotations).
+"""RNS-CKKS in PyTorch (counterpart of sfgwas_tpu/crypto/ckks.py): keygen
+(local and switching keys), encode/encrypt/decrypt, add/sub and constants,
+plaintext and relinearising products, rescale, the hybrid keyswitch, single,
+batched, hoisted and grouped rotations and the conjugation.
 
 Polys are int32 residue tensors [nmod, N] in the bit-reversed NTT domain;
 the special prime is the last row of the full basis.  Key switching uses
 the alpha = 1 gadget: per-prime digits, switching keys
     ksk[j] = (-a_j s + e_j + (P mod q_j) * s_src * 1_{row j},  a_j).
 
-On the card every NTT runs on kernel K1 (ops/cuda_ntt.py), the digit
-contraction of the keyswitch on kernel K3 (ks_digit_product below, source
+On the card every NTT runs on kernel K1 (ops/cuda_ntt.py), every digit
+contraction of a keyswitch on kernel K3 (ks_digit_product below, source
 csrc/ks_digit.cu) and the threefry draw of uniform residues on kernel K4
 (device_uniform_b below, source csrc/crp.cu).  ModUp's basis extension,
-ModDown and the Galois gathers are plain torch.
+ModDown, the Galois gathers, the tensor product and the plaintext products
+are plain torch with exact int64 products (ROADMAP B12, B13).
 """
 
 from __future__ import annotations
@@ -341,6 +343,33 @@ class CkksContext:
         q = self._t(self.full_rows)["q"][None, : self.nq]
         return rns.mul_mod(s_src_b[:, : self.nq], self.to_dev(pj)[None, :, None], q)
 
+    def kswitch_share_many(self, s_tgt, s_diag_b, a, e):
+        """kswitch_share for B keys at once: s_diag_b [B, nq+1, N]; a, e
+        [B, nq, nq+1, N] -> [B, nq, nq+1, N]."""
+        q = self._t(self.full_rows)["q"]
+        k0 = add_mod(neg_mod(mul_mod(a, s_tgt[None, None], q[None, None]), q[None, None]), e,
+                     q[None, None])
+        diag = torch.arange(self.nq, device=self.device)
+        k0[:, diag, diag] = add_mod(
+            k0[:, diag, diag], self._gadget_terms_b(s_diag_b), q[None, : self.nq]
+        )
+        return k0
+
+    def gen_kswitch_key(self, s_src, sk: SecretKey, rng: np.random.Generator) -> KSwitchKey:
+        """Key switching s_src -> sk (both [nq+1, N] NTT), all digits in one
+        batched pass; the draws are the reference's."""
+        a = self.sample_uniform_b(rng, self.full_rows, self.nq)
+        e = self.small_to_rns_b(
+            np.stack([self.sample_gauss(rng) for _ in range(self.nq)]), self.full_rows
+        )
+        return KSwitchKey(self.kswitch_share(sk.s, s_src, a, e), a)
+
+    def gen_relin_key(self, sk: SecretKey, rng: np.random.Generator) -> KSwitchKey:
+        return self.gen_kswitch_key(mul_mod(sk.s, sk.s, self._t(self.full_rows)["q"]), sk, rng)
+
+    def gen_rot_key(self, sk: SecretKey, g: int, rng: np.random.Generator) -> KSwitchKey:
+        return self.gen_kswitch_key(self.automorphism(sk.s, g), sk, rng)
+
     def kswitch_share_many_sliced(self, s_tgt, s_diag_b, a, e, key_nmod: int):
         """Switching-key shares for B keys restricted to the first key_nmod
         digits and rows (0..key_nmod-1, special): a, e [B, key_nmod,
@@ -509,6 +538,103 @@ class CkksContext:
         q = self._t(range(nmod))["q"]
         return mul_mod(c0, p, q), mul_mod(c1, p, q)
 
+    # ------------------------------------------------- plaintext products
+    #
+    # Plain torch with exact int64 products (ROADMAP B13): the reference's
+    # XLA programs, ported as they are.
+
+    def mul_plain(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+        nmod = min(a.nmod, pt.nmod)
+        c0, c1 = self._mul_pair(a.c0[:nmod], a.c1[:nmod], pt.poly[:nmod], nmod)
+        return Ciphertext(c0, c1, nmod, a.scale * pt.scale)
+
+    def mul_plain_many_b(self, c0, c1, pts, nmod: int):
+        """One ciphertext x B stacked plaintexts [B, nmod, N] -> B unrescaled
+        product pairs ([B, nmod, N] x2)."""
+        q = self._t(range(nmod))["q"]
+        return mul_mod(c0[None], pts, q), mul_mod(c1[None], pts, q)
+
+    def mul_plain_pairs_sum(self, c0s, c1s, pts, nmod: int):
+        """sum_b ct_b * pt_b over B (ciphertext, plaintext) pairs ([B, nmod,
+        N] each): the unrescaled (c0, c1) sum mod q."""
+        q = self._t(range(nmod))["q"].long()
+        p = pts.long()
+
+        def dot(c):
+            return torch.remainder(torch.remainder(c.long() * p, q).sum(0), q).to(torch.int32)
+
+        return dot(c0s), dot(c1s)
+
+    # ------------------------------------------ relinearising products
+
+    def _tensor_product(self, ac0, ac1, bc0, bc1, nmod: int):
+        """(d0, d1, d2) of two ciphertexts' components (any matching
+        leading shape), plain torch with exact products (ROADMAP B12)."""
+        q = self._t(range(nmod))["q"]
+        d0 = mul_mod(ac0, bc0, q)
+        d1 = add_mod(mul_mod(ac0, bc1, q), mul_mod(ac1, bc0, q), q)
+        return d0, d1, mul_mod(ac1, bc1, q)
+
+    @staticmethod
+    def _key_rows(d0, d1, nmod: int):
+        """A switching key's first nmod digits on the rows (0..nmod-1,
+        special), as contiguous [nmod, nmod+1, N] copies (K3 reads them).
+        The special row is the key's last row, whether the key holds the
+        full basis or was sliced to a band."""
+        ridx = torch.tensor(tuple(range(nmod)) + (int(d0.shape[1]) - 1,), device=d0.device)
+        return d0[:nmod][:, ridx].contiguous(), d1[:nmod][:, ridx].contiguous()
+
+    def _relin_b(self, d0, d1, d2, kd0, kd1, nmod: int):
+        """Relinearise B tensor products d* [B, nmod, N] under one key: the
+        digits of every d2 against the shared key on K3 (G 1, S B, Bk 1),
+        then ModDown; returns (d0 + k0, d1 + k1)."""
+        B = d2.shape[0]
+        ext_rows = tuple(range(nmod)) + (self.sp_row,)
+        ext = self.decompose_ntt_b(d2, nmod).contiguous()  # [B, nmod, next, N]
+        k0, k1 = self._key_rows(kd0, kd1, nmod)
+        acc0, acc1 = self._ks_digit(ext[None], k0[None, None], k1[None, None], ext_rows)
+        q = self._t(range(nmod))["q"]
+        k0s = self._moddown_b(acc0.view(B, nmod + 1, self.n), nmod)
+        k1s = self._moddown_b(acc1.view(B, nmod + 1, self.n), nmod)
+        return add_mod(d0, k0s, q), add_mod(d1, k1s, q)
+
+    def mul_relin(self, a: Ciphertext, b: Ciphertext, rlk: KSwitchKey) -> Ciphertext:
+        """The tensor product, then the unbatched keyswitch of d2 (K3 with
+        S 1)."""
+        a, b, rows = self._match(a, b)
+        q = self._t(rows)["q"]
+        d0, d1, d2 = self._tensor_product(a.c0, a.c1, b.c0, b.c1, a.nmod)
+        k0, k1 = self._keyswitch_core_arr(d2, rlk.d0, rlk.d1, a.nmod)
+        return Ciphertext(add_mod(d0, k0, q), add_mod(d1, k1, q), a.nmod, a.scale * b.scale)
+
+    def mul_relin_many(self, a: Ciphertext, bs, rlk: KSwitchKey):
+        """a * b_j for ciphertexts b_j at a's level: one batched
+        relinearisation under the shared key."""
+        nmod = min([a.nmod] + [b.nmod for b in bs])
+        aa = self.drop_to(a, nmod)
+        bsd = [self.drop_to(b, nmod) for b in bs]
+        bc0 = torch.stack([b.c0 for b in bsd])
+        bc1 = torch.stack([b.c1 for b in bsd])
+        d = self._tensor_product(aa.c0[None], aa.c1[None], bc0, bc1, nmod)
+        c0, c1 = self._relin_b(*d, rlk.d0, rlk.d1, nmod)
+        return [Ciphertext(c0[j], c1[j], nmod, aa.scale * b.scale) for j, b in enumerate(bsd)]
+
+    def mul_relin_pairs(self, xs, ys, rlk: KSwitchKey):
+        """x_e * y_e over two equal-length ciphertext lists at a common
+        level: one batched relinearisation for all pairs."""
+        assert len(xs) == len(ys)
+        nmod = min(min(x.nmod for x in xs), min(y.nmod for y in ys))
+        xsd = [self.drop_to(x, nmod) for x in xs]
+        ysd = [self.drop_to(y, nmod) for y in ys]
+        d = self._tensor_product(
+            torch.stack([x.c0 for x in xsd]), torch.stack([x.c1 for x in xsd]),
+            torch.stack([y.c0 for y in ysd]), torch.stack([y.c1 for y in ysd]), nmod,
+        )
+        c0, c1 = self._relin_b(*d, rlk.d0, rlk.d1, nmod)
+        return [
+            Ciphertext(c0[j], c1[j], nmod, xsd[j].scale * ysd[j].scale) for j in range(len(xsd))
+        ]
+
     # ------------------------------------------------------------- consts
 
     def const_poly(self, value: float, nmod: int, scale: float) -> torch.Tensor:
@@ -531,7 +657,41 @@ class CkksContext:
         pair = float(self.basis.primes[ct.nmod - 1]) * float(self.basis.primes[ct.nmod - 2])
         return self.mul_const(ct, value, target * pair / ct.scale)
 
+    def mul_const_int(self, ct: Ciphertext, value: int) -> Ciphertext:
+        """Multiply by a small integer without a scale change."""
+        res = np.array([value % self.basis.primes[i] for i in range(ct.nmod)], dtype=np.uint32)
+        c0, c1 = self._mul_pair(ct.c0, ct.c1, self.to_dev(res)[:, None], ct.nmod)
+        return Ciphertext(c0, c1, ct.nmod, ct.scale)
+
+    def add_const(self, ct: Ciphertext, value: float) -> Ciphertext:
+        q = self._t(range(ct.nmod))["q"]
+        res = self.const_poly(value, ct.nmod, ct.scale)
+        return Ciphertext(add_mod(ct.c0, res, q), ct.c1, ct.nmod, ct.scale)
+
     # ------------------------------------------------------------ rescale
+
+    def rescale_one(self, ct: Ciphertext) -> Ciphertext:
+        """Drop the top active prime, dividing the message by it."""
+        nmod = ct.nmod
+        assert nmod > self.params.base_nmod, (
+            f"level underflow: rescale at nmod={nmod} "
+            f"(base={self.params.base_nmod}); bootstrap first"
+        )
+        src = nmod - 1
+        c0, c1 = self._rescale_pair(ct.c0, ct.c1, src)
+        return Ciphertext(c0, c1, src, ct.scale / self.basis.primes[src])
+
+    def _rescale_pair(self, c0, c1, src: int):
+        out = self._rescale_poly_b(torch.stack([c0, c1]), src)
+        return out[0], out[1]
+
+    def _rescale2_pair(self, c0, c1, src: int):
+        out = self.rescale2_many(torch.stack([c0, c1]), src)
+        return out[0], out[1]
+
+    def _rescale_poly(self, c, src: int, dst: Tuple[int, ...]):
+        assert dst == tuple(range(src))
+        return self._rescale_poly_b(c[None], src)[0]
 
     def rescale(self, ct: Ciphertext) -> Ciphertext:
         """One logical level = two primes (scale ~2^50), both components in
@@ -619,6 +779,47 @@ class CkksContext:
 
     # ---------------------------------------------------------- keyswitch
 
+    def decompose_ntt(self, d, nmod: int):
+        """ModUp of one poly: d [nmod, N] -> [nmod, nmod+1, N] (B = 1)."""
+        return self.decompose_ntt_b(d[None], nmod)[0]
+
+    def keyswitch_decomposed(self, ext_ntt, ksk: KSwitchKey, nmod: int):
+        return self._keyswitch_decomposed_arr(ext_ntt, ksk.d0, ksk.d1, nmod)
+
+    def _keyswitch_decomposed_arr(self, ext_ntt, d0, d1, nmod: int):
+        """ext_ntt [nmod, nmod+1, N] against one key: keyswitch_decomposed_b
+        with B = 1 (K3 with G 1, S 1) -> (k0, k1) [nmod, N]."""
+        k0, k1 = self._key_rows(d0, d1, nmod)
+        p0, p1 = self.keyswitch_decomposed_b(ext_ntt[None], k0[None], k1[None], nmod)
+        return p0[0], p1[0]
+
+    def keyswitch_core(self, d, ksk: KSwitchKey, nmod: int):
+        """Switch NTT-domain poly d [nmod, N] (a c1-part under s_src) to the
+        target key; returns (k0, k1) each [nmod, N]."""
+        return self._keyswitch_core_arr(d, ksk.d0, ksk.d1, nmod)
+
+    def _keyswitch_core_arr(self, d, d0, d1, nmod: int):
+        return self._keyswitch_decomposed_arr(self.decompose_ntt(d, nmod), d0, d1, nmod)
+
+    def keyswitch_decomposed_b(self, ext, k0, k1, nmod: int):
+        """ext, k0, k1 [B, nmod, next, N], each ciphertext against its own
+        key: the digit contraction on K3 (G B, S 1, Bk 1), then ModDown ->
+        (p0, p1) [B, nmod, N]."""
+        B = ext.shape[0]
+        ext_rows = tuple(range(nmod)) + (self.sp_row,)
+        acc0, acc1 = self._ks_digit(
+            ext.contiguous()[:, None], k0.contiguous()[:, None], k1.contiguous()[:, None],
+            ext_rows,
+        )
+        return (
+            self._moddown_b(acc0.view(B, nmod + 1, self.n), nmod),
+            self._moddown_b(acc1.view(B, nmod + 1, self.n), nmod),
+        )
+
+    def _moddown(self, x, nmod: int):
+        """x: [nmod+1, N] over active+special (NTT) -> [nmod, N] = x/P."""
+        return self._moddown_b(x[None], nmod)[0]
+
     def decompose_ntt_b(self, d, nmod: int):
         """Batched ModUp: d [B, nmod, N] NTT-domain -> [B, nmod, next, N]
         (a permuted view; next = nmod + 1 rows: active primes + special)."""
@@ -693,6 +894,85 @@ class CkksContext:
         c0g = torch.gather(c0s, -1, pg)
         return add_mod(c0g, k0, self._t(range(nmod))["q"]), k1
 
+    def rotate_batch(self, c0s, c1s, gs, k0s, k1s, nmod: int):
+        """Rotate B stacked ciphertexts ([B, nmod, N] components), each by
+        its own Galois element gs[b] under its own key k0s/k1s [B, nmod,
+        next, N].  Returns (r0, r1) [B, nmod, N]."""
+        perms = self.perms_for(gs)
+        ext = self.decompose_ntt_b(c1s, nmod)  # [B, nmod, next, N]
+        ext_g = torch.gather(ext, -1, perms[:, None, None, :].expand(ext.shape))
+        c0g = torch.gather(c0s, -1, perms[:, None, :].expand(c0s.shape))
+        k0, k1 = self.keyswitch_decomposed_b(ext_g, k0s, k1s, nmod)
+        return add_mod(c0g, k0, self._t(range(nmod))["q"]), k1
+
+    def hoisted_rotations_b(self, ct: Ciphertext, shifts, k0s, k1s):
+        """One decomposition of c1 applied under every shift's Galois
+        permutation with stacked keys k0s/k1s [B, nmod, next, N] (B = the
+        nonzero shifts, in the order of `shifts`).  Returns (R0, R1)
+        [len(shifts), nmod, N]; a zero shift holds the input ciphertext."""
+        nmod = ct.nmod
+        nz = [k % self.params.slots for k in shifts]
+        gs = [self.galois_for_rotation(k) for k in nz if k != 0]
+        if not gs:
+            return ct.c0[None], ct.c1[None]
+        perms = self.perms_for(gs)
+        ext = self.decompose_ntt(ct.c1, nmod)  # [nmod, next, N]
+        shape = (len(gs),) + tuple(ext.shape)
+        ext_g = torch.gather(ext[None].expand(shape), -1, perms[:, None, None, :].expand(shape))
+        c0g = torch.gather(ct.c0[None].expand(shape[:1] + ct.c0.shape), -1,
+                           perms[:, None, :].expand(shape[:1] + ct.c0.shape))
+        k0, k1 = self.keyswitch_decomposed_b(ext_g, k0s, k1s, nmod)
+        r0 = add_mod(c0g, k0, self._t(range(nmod))["q"])
+        if all(k != 0 for k in nz):
+            return r0, k1
+        out0, out1, j = [], [], 0
+        for k in nz:
+            if k == 0:
+                out0.append(ct.c0)
+                out1.append(ct.c1)
+            else:
+                out0.append(r0[j])
+                out1.append(k1[j])
+                j += 1
+        return torch.stack(out0), torch.stack(out1)
+
+    def hoisted_rotations(self, ct: Ciphertext, shifts, rot_keys):
+        """Rotate one ciphertext by many shifts, decomposing c1 once (the
+        automorphism commutes with the per-digit lift).  Returns {shift:
+        Ciphertext}."""
+        nmod = ct.nmod
+        q = self._t(range(nmod))["q"]
+        ext = self.decompose_ntt(ct.c1, nmod)
+        out = {}
+        for k in shifts:
+            k = k % self.params.slots
+            if k == 0:
+                out[0] = ct.copy()
+                continue
+            g = self.galois_for_rotation(k)
+            ext_g = self.automorphism(ext, g)
+            k0, k1 = self.keyswitch_decomposed(ext_g, rot_keys[g], nmod)
+            out[k] = Ciphertext(add_mod(self.automorphism(ct.c0, g), k0, q), k1, nmod, ct.scale)
+        return out
+
+    def rotate(self, ct: Ciphertext, k: int, rot_keys: Dict[int, KSwitchKey]) -> Ciphertext:
+        if k % self.params.slots == 0:
+            return ct.copy()
+        g = self.galois_for_rotation(k)
+        return self.apply_galois(ct, g, rot_keys[g])
+
+    def conjugate(self, ct: Ciphertext, rot_keys: Dict[int, KSwitchKey]) -> Ciphertext:
+        g = self.galois_conjugate()
+        return self.apply_galois(ct, g, rot_keys[g])
+
+    def apply_galois(self, ct: Ciphertext, g: int, key: KSwitchKey) -> Ciphertext:
+        """sigma_g of both components, then the keyswitch of c1 back to the
+        secret key (K3 with S 1)."""
+        perm = self._perm_for(g)
+        k0, k1 = self._keyswitch_core_arr(ct.c1[..., perm], key.d0, key.d1, ct.nmod)
+        c0 = add_mod(ct.c0[..., perm], k0, self._t(range(ct.nmod))["q"])
+        return Ciphertext(c0, k1, ct.nmod, ct.scale)
+
     # -------------------------------------------------------- automorphism
 
     def _exps_table(self) -> np.ndarray:
@@ -758,6 +1038,10 @@ class CkksContext:
         shape = (len(gs),) + tuple(poly.shape)
         idx = perms.view((len(gs),) + (1,) * (poly.dim() - 1) + (-1,)).expand(shape)
         return torch.gather(poly[None].expand(shape), -1, idx)
+
+    def automorphism(self, poly, g: int):
+        """sigma_g in the NTT domain: a gather along the slot axis."""
+        return poly[..., self._perm_for(g)]
 
     def galois_for_rotation(self, k: int) -> int:
         """Galois element for a left rotation by k slots."""

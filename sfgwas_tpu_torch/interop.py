@@ -56,6 +56,31 @@ def ciphertext(
     return C.Ciphertext(ctx.to_dev(c0), ctx.to_dev(c1), int(nmod), float(scale))
 
 
+def cipher_matrix(
+    ctx: C.CkksContext,
+    cols: Sequence[Sequence[Tuple[np.ndarray, np.ndarray, int, float]]],
+) -> List[List[C.Ciphertext]]:
+    """A cipher matrix given as columns of (c0, c1, nmod, scale) -> the
+    port's list of columns of ciphertexts (a None entry, a party's
+    placeholder, stays None)."""
+    return [[None if ct is None else ciphertext(ctx, *ct) for ct in col] for col in cols]
+
+
+def cipher_matrix_arrays(cm) -> List[List[Optional[Tuple[np.ndarray, np.ndarray, int, float]]]]:
+    """A cipher matrix on the host (the reference's, or the port's on the
+    CPU) as columns of (c0, c1, nmod, scale), the argument of
+    cipher_matrix."""
+    def arr(x):
+        a = np.asarray(x)
+        return a.view(np.uint32) if a.dtype == np.int32 else a
+
+    return [
+        [None if ct is None else (arr(ct.c0), arr(ct.c1), int(ct.nmod), float(ct.scale))
+         for ct in col]
+        for col in cm
+    ]
+
+
 def diag_cache(
     ctx: C.CkksContext,
     blocks: Sequence[Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray, int]]],

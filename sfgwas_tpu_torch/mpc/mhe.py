@@ -56,6 +56,9 @@ class CryptoParams:
     rot_keys: Dict[int, C.KSwitchKey] = field(default_factory=dict)
     enc_rng: np.random.Generator = None
     _kstack: Dict = field(default_factory=dict, repr=False)
+    # encoded mask-plaintext stacks of crypto/basics.py, per bundle (a
+    # bundle's preset and levels are its own)
+    _masks: Dict = field(default_factory=dict, repr=False)
 
     # device budget for cached stacks of level-sliced rotation keys
     _KSTACK_BUDGET = 4 * 1024**3
@@ -125,6 +128,22 @@ class CryptoParams:
             return torch.gather(d0, -1, idx), torch.gather(d1, -1, idx)
 
         return self._stack(("inv", tuple(gelems), nmod), build)
+
+    def rotate(self, ct: C.Ciphertext, k: int) -> C.Ciphertext:
+        """One left rotation through the cached level-sliced key path."""
+        k = k % self.slots
+        if k == 0:
+            return ct.copy()
+        return self._rotate_g(self.ctx.galois_for_rotation(k), ct)
+
+    def conjugate(self, ct: C.Ciphertext) -> C.Ciphertext:
+        return self._rotate_g(self.ctx.galois_conjugate(), ct)
+
+    def _rotate_g(self, g: int, ct: C.Ciphertext) -> C.Ciphertext:
+        ct = self.clamp_rot(ct)
+        d0, d1 = self.stacked_keys([g], ct.nmod)
+        r0, r1 = self.ctx.rotate_batch(ct.c0[None], ct.c1[None], [g], d0, d1, ct.nmod)
+        return C.Ciphertext(r0[0], r1[0], ct.nmod, ct.scale)
 
 
 # ---------------------------------------------------------------------------

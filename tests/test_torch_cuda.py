@@ -541,3 +541,67 @@ def test_ss_he_round_trip_on_card_matches_cpu(dev):
         got = np.array([(int(v) - R.P256 if int(v) > R.P256 // 2 else int(v)) / (1 << 30)
                         for v in card[pid][2]])
         assert np.abs(got - vals.reshape(-1)).max() < 1e-3
+
+
+@pytest.mark.parametrize("J,X", [(9, 10), (7, 8)])
+def test_ks_digit_kernel_at_the_qr_shapes(dev, J, X):
+    """K3 at the covariate basis' shapes at PN14QP438: the relinearisation
+    of the 21 Gram pairs under the shared key (G 1, S 21, Bk 1, J 9, X 10)
+    and the rotation ladder of 21 ciphertexts (J 7, X 8)."""
+    basis = get_params("PN14QP438").basis
+    ext, k0, k1, q, mu = _ks_case(dev, basis, 1, 21, 1, J, 3 + J, X=X)
+    o = PC.ks_digit_product(ext, k0, k1, q, mu, basis.logn)
+    p = PC.ks_digit_product_plain(ext, k0, k1, q)
+    torch.cuda.synchronize()
+    assert torch.equal(o[0], p[0]) and torch.equal(o[1], p[1])
+
+
+@pytest.mark.parametrize("preset,slots,nrows", [("TEST8", 128, [0, 300, 200]),
+                                                ("TEST10", 512, [0, 600, 200])])
+def test_cholqr_on_card_matches_cpu(dev, preset, slots, nrows):
+    """The combined covariate basis (compute_combined_q over net_cholqr_enc,
+    2 covariates) of three parties on the card gives the ciphertexts of the
+    port's CPU run under the same keys, PRG keys and generators, and
+    launches K1, K3, K4, K5 and K6: at TEST8 the QR's drift-compensation
+    branch, at TEST10 its scale-reset branch (the one PN14QP438 runs)."""
+    from sfgwas_tpu_torch import interop
+    from sfgwas_tpu_torch.gwas.assoc import compute_combined_q
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.parallel.simulate import run_parties
+
+    pw = [1 << k for k in range(slots.bit_length() - 1)]
+    shifts = pw + [slots - k for k in pw]
+    keys = run_parties(3, lambda mpc: interop.bundle_arrays(
+        PM.collective_init(mpc.net, preset, shifts_override=shifts, device="cpu")))
+    n1 = nrows[1]
+    cov = np.random.default_rng(21).normal(size=(sum(nrows), 2)) * np.array([50.0, 0.3])
+
+    def run(device):
+        def fn(mpc):
+            mpc.rand.table[mpc.pid] = np.random.Generator(np.random.Philox(key=[9, mpc.pid]))
+            ctx = PC.CkksContext(get_params(preset), device=device)
+            cps = interop.crypto_params(ctx, enc_rng=np.random.default_rng(100 + mpc.pid),
+                                        **keys[mpc.pid])
+            c = 2 if mpc.pid == 0 else cov[:n1] if mpc.pid == 1 else cov[n1:]
+            Q, _ = compute_combined_q(mpc, cps, c, None, nrows, False)
+            return None if mpc.pid == 0 else interop.cipher_matrix_arrays(
+                [[PC.Ciphertext(ct.c0.cpu(), ct.c1.cpu(), ct.nmod, ct.scale) for ct in col]
+                 for col in Q])
+
+        return run_parties(3, fn)
+
+    cpu = run("cpu")
+    cuda_build.reset_launch_counts()
+    card = run(dev)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+    for k in ("ntt_fwd", "ntt_inv", "ks_digit_product", "uniform_mod", "bs_mask", "bs_combine",
+              "crt_lift"):
+        assert launched[k] > 0, k
+    for pid in (1, 2):
+        assert [len(c) for c in card[pid]] == [len(c) for c in cpu[pid]]
+        for ccol, pcol in zip(card[pid], cpu[pid]):
+            for (a0, a1, an, as_), (b0, b1, bn, bs) in zip(ccol, pcol):
+                assert (an, as_) == (bn, bs)
+                np.testing.assert_array_equal(a0, b0)
+                np.testing.assert_array_equal(a1, b1)

@@ -47,7 +47,7 @@ def test_import_pulls_in_no_jax():
     assert len(MODULES) >= 12
     for m in ("mpc.prg", "parallel.transport", "parallel.simulate", "mpc.mhe", "ops.threefry",
               "ops.ring", "ops.native_ring", "mpc.mpc", "mpc.boolean", "mpc.linalg",
-              "mpc.ss_he", "utils.ddfloat"):
+              "mpc.ss_he", "utils.ddfloat", "crypto.basics", "gwas.qrfact", "gwas.assoc"):
         assert "sfgwas_tpu_torch." + m in MODULES
 
 
@@ -66,6 +66,21 @@ def test_default_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PC.CkksContext(get_params("TEST8"), device="cuda")
     assert PC.CkksContext(get_params("TEST8"), device="cpu").device.type == "cpu"
+
+
+def test_protocol_layers_pick_no_device(monkeypatch):
+    """The ciphertext-matrix suite and the covariate basis run on their key
+    bundle's context: they name no device of their own (so no CPU path can
+    stand in for the card), and a bundle built with the default device
+    needs a card."""
+    for m in ("crypto/basics.py", "gwas/qrfact.py", "gwas/assoc.py"):
+        src = (PKG / m).read_text()
+        assert not re.search(r"""["']cpu["']|torch\.device\(|\.cpu\(\)""", src), m
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from sfgwas_tpu_torch import interop
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.crypto_params(PC.CkksContext(get_params("TEST8")), np.zeros(1), (0, 0), {})
 
 
 def test_wrappers_take_plain_path_on_cpu():
