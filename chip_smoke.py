@@ -97,7 +97,31 @@ Phases (any failed check raises; the exit code is then nonzero):
     K1, K3 (the relinearisation and the rotation ladder), K4, K5 and K6
     are held bit for bit against their plain versions at every shape the
     timed call launched them with, recorded at their wrappers, and timed;
- 9. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+ 9. the linear association phase at PN14QP438, phases 1 and 3 of
+    sfgwas_tpu/gwas/protocol.py driven by hand: three parties as threads on
+    the card (run_parties as in phase 7) under collective keys from
+    collective_init with the default shift set; each data party holds 1000
+    individuals, 5 covariates (phase 8's scales) and 2 blocks of 4546 SNPs
+    (genotype files with about 1% missing calls, MAF uniform in [0.02,
+    0.5], and the plink2 count file, all from --seed; the example's SNP
+    axis of 99,336 cut to 9,092), and a phenotype with 5 planted effects.
+    QC from the counts (config/configGlobal.toml's thresholds), the column
+    filters on the blocks' streams with missing read as 0, then
+    get_association_stats twice: traced under torch.profiler over all
+    threads (the device's busy and idle share, device ms by kernel and of
+    the labelled plain-torch programs, peak device memory; a host read of a
+    device value fails the run), then timed with every launch count set to
+    0 just before it and read right after it (party 1's spans qc,
+    combined_q, assoc_ynew, assoc_block with assoc_encode_wait, assoc_mm
+    and assoc_agg_bs inside it, assoc_sxx, assoc_syy, std_inv and decrypt,
+    synchronized).  The revealed SNP filter must equal a plaintext QC
+    oracle of the same counts and every decrypted statistic lie within
+    2e-2 of the plaintext oracle (the QR projection of
+    tests/test_e2e_gwas.py) with Pearson corr > 0.999; K2 must have run
+    once per block at each data party.  K1, K2, K3, K4, K5 and K6 are held
+    bit for bit against their plain versions at every shape the timed call
+    launched them with, recorded at their wrappers, and timed;
+10. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
@@ -105,8 +129,8 @@ Needs a CUDA card; without one it exits nonzero and prints no result.
 Writes the record to chiprun_out/chip_smoke.json, the shapes --tree times
 to chiprun_out/shapes.json, the profiler's tables to
 chiprun_out/mm_profile.txt, chiprun_out/bs_profile.txt,
-chiprun_out/ss_profile.txt and chiprun_out/qr_profile.txt and the SASS
-listings to
+chiprun_out/ss_profile.txt, chiprun_out/qr_profile.txt and
+chiprun_out/assoc_profile.txt and the SASS listings to
 chiprun_out/sass_main_*.txt.
 
 --tree DIR --shapes FILE times only K1 (at one product's shapes), K4 (at
@@ -443,6 +467,31 @@ def _k3_site() -> str:
         if site in names:
             return site
     raise AssertionError(f"K3 launched from no known site: {sorted(names)}")
+
+
+def _k2_check(torch, MM, kernels, name, launch, R0, R1, polys, runs, q, mu, logn, nacc: int):
+    """K2 (`launch`) against its plain version on one block row's baby
+    rotations R0, R1 [nb, s, nmod, N], its diagonal polys and runs, into
+    zeroed accumulators of nacc rows (timed in place, as the product runs
+    it)."""
+    nb, s, nmod, N = R0.shape
+    dev = R0.device
+    zeros = lambda: torch.zeros((nacc, s, nmod, N), dtype=torch.int32, device=dev)  # noqa: E731
+    tacc0, tacc1 = zeros(), zeros()
+    E = int(runs.run_start_host[-1])
+    nbytes = 4 * (2 * nb * s * nmod * N  # R0, R1: the row's babies
+                  + polys.shape[0] * nmod * N  # the diagonal polys
+                  + 2 * 2 * runs.nruns * s * nmod * N)  # ACC rows read and written
+    macs = 2 * E * s * nmod * N
+    _check(
+        torch, kernels, name, "mac_dense", "sfgwas_tpu_torch/csrc/mac_dense.cu",
+        "sfgwas_tpu/gwas/matmult.py:504", [runs.nruns, E, nb, s, nmod, N],
+        lambda: launch(zeros(), zeros(), R0, R1, polys, runs, q, mu, logn),
+        lambda: MM.mac_dense_plain(zeros(), zeros(), R0, R1, polys, runs, q),
+        5, 1, nbytes, 2 * macs,
+        timed=(lambda: launch(tacc0, tacc1, R0, R1, polys, runs, q, mu, logn),
+               lambda: MM.mac_dense_plain(tacc0, tacc1, R0, R1, polys, runs, q)),
+    )
 
 
 def _k4_check(torch, C, kernels, q, mu, sd, idx, b, logn, launch):
@@ -1375,6 +1424,364 @@ def qr_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# 9. the linear association phase
+
+ASSOC_PATH = ("ntt_fwd", "ntt_inv", "mac_dense", "ks_digit_product", "uniform_mod", "bs_mask",
+              "bs_combine", "crt_lift")
+# config/configGlobal.toml: maf_lb, hwe_ub, gmiss, imiss_ub, het_lb, het_ub
+ASSOC_FILTER = (0.1, 28.374, 0.1, 0.05, 0.2, 0.5)
+ASSOC_STAT_TOL = 2e-2  # tests/test_e2e_gwas.py:159-162
+ASSOC_MIN_CORR = 0.999
+# the example's SNP axis (99,336 SNPs in 22 blocks), cut to 2 of its blocks
+EXAMPLE_SNPS = 99_336
+
+
+def _assoc_data(seed: int, n_loc: int, m_block: int, nblocks: int, ncov: int = 5):
+    """The phase's data from the seed, per data party: genotypes [n_loc,
+    nblocks * m_block] in {0, 1, 2} with about 1% missing (-1), each SNP's
+    minor allele frequency uniform in [0.02, 0.5]; 5 covariates at phase
+    8's column scales; a phenotype with 5 planted effects on the dosages
+    (missing read as 0)."""
+    rng = np.random.default_rng(seed + 4)
+    m = nblocks * m_block
+    maf = rng.uniform(0.02, 0.5, size=m)
+    planted = rng.choice(m, 5, replace=False)
+    out = {}
+    for pid in (1, 2):
+        g = rng.binomial(2, maf[None, :], size=(n_loc, m)).astype(np.int8)
+        g[rng.uniform(size=(n_loc, m)) < 0.01] = -1
+        cov = rng.normal(size=(n_loc, ncov)) * np.array([1.0, 20.0, 0.1, 50.0, 0.3])[:ncov]
+        pheno = rng.normal(size=n_loc) + 0.3 * np.maximum(g[:, planted], 0).sum(1)
+        out[pid] = (g, pheno, cov)
+    return out
+
+
+def _count_file(g: np.ndarray, path: str):
+    """plink2's --geno-counts layout as the reference reads it
+    (read_geno_stats_file): 6 x m little-endian uint32 rows of hom-ref,
+    het and hom-alt counts, two rows the reader derives itself (zeros
+    here), and the missing count."""
+    raw = np.zeros((6, g.shape[1]), "<u4")
+    for k in range(3):
+        raw[k] = (g == k).sum(0)
+    raw[5] = (g < 0).sum(0)
+    raw.tofile(path)
+
+
+def assoc_qc_oracle(data, fp, n_loc: int) -> np.ndarray:
+    """Plaintext mirror of snp_filter_with_precomputed_stats over the pooled
+    counts: missingness, then MAF in exact integers (the protocol's 20-bit
+    bound) and the HWE chi-square in floats."""
+    maf_lower, hwe_upper, geno_miss = fp[:3]
+    g = np.concatenate([data[1][0], data[2][0]])
+    nonmiss = (g >= 0).sum(0)
+    keep = nonmiss >= int((1 - geno_miss) * 2 * n_loc)
+    gobs = np.stack([(g == k).sum(0) for k in range(3)]).astype(np.float64)
+    s = gobs[1] + 2 * gobs[2]
+    c = 2 * nonmiss
+    bound = int(round(((2 * maf_lower - 1.0) ** 2) * (1 << 20)))
+    maf_ok = np.array([int(ci) ** 2 * bound - (2 * int(si) - int(ci)) ** 2 * (1 << 20) > 0
+                       for si, ci in zip(s, c)])
+    a, b = s, c.astype(np.float64)
+    exp = [(b - a) ** 2, 2 * a * (b - a), a ** 2]
+    chi = sum((2 * b * gobs[i] - exp[i]) ** 2 / exp[i] for i in range(3))
+    return keep & maf_ok & (chi < 2 * b * hwe_upper)
+
+
+def assoc_stat_oracle(data, keep: np.ndarray) -> np.ndarray:
+    """tests/test_e2e_gwas.py's oracle: each kept SNP's Pearson statistic
+    against the phenotype, both projected off [ones | covariates]
+    (missing dosages read as 0)."""
+    G = np.concatenate([data[1][0], data[2][0]])[:, keep].astype(np.float64)
+    G[G < 0] = 0.0
+    y = np.concatenate([data[1][1], data[2][1]])
+    C = np.concatenate([data[1][2], data[2][2]])
+    Qm, _ = np.linalg.qr(np.column_stack([np.ones(len(y)), C]))
+    yt = y - Qm @ (Qm.T @ y)
+    Gt = G - Qm @ (Qm.T @ G)
+    return (yt @ G) / np.sqrt((Gt * Gt).sum(0)) / np.sqrt(yt @ yt)
+
+
+def _k2_recorder(rec: "_Recorder"):
+    """Adds K2 (mac_dense, which its caller passes mu and logn by keyword)
+    to a recorder: the first launch's inputs at each shape, and the
+    launches at each."""
+    from sfgwas_tpu_torch.gwas import matmult as MM
+
+    rec.args["mac_dense"] = {}
+
+    def make(real):
+        def wrapped(ACC0, ACC1, R0, R1, polys, runs, q, mu, logn):
+            key = (runs.nruns, int(runs.run_start_host[-1]), tuple(R0.shape), ACC0.shape[0])
+            with rec._lock:
+                rec.args["mac_dense"].setdefault(key, (R0, R1, polys, runs, q, mu, logn))
+                rec.counts[("mac_dense", key)] += 1
+            return real(ACC0, ACC1, R0, R1, polys, runs, q, mu=mu, logn=logn)
+
+        return wrapped
+
+    rec.real["mac_dense"] = rec.patch(MM, "mac_dense", make)
+
+
+def _assoc_parties(torch, seed: int, out_dir: str, n_loc: int = 1000, m_block: int = 4546,
+                   nblocks: int = 2, preset: str = "PN14QP438", device=None):
+    """The association phase's protocol, phases 1 and 3 of
+    sfgwas_tpu/gwas/protocol.py driven by hand: three parties (dealer 0,
+    data parties 1 and 2, hub 1) through the port's run_parties (256-bit
+    field, 60 data bits, 30 fraction bits, boolean shares, native engine)
+    under collective keys at `preset` (default shift set, relinearisation
+    key).  Each data party holds n_loc individuals, 5 covariates and
+    nblocks genotype files of m_block SNPs with their plink2 count file,
+    made from the seed in a temporary directory.  QC from the counts
+    (snp_filter_with_precomputed_stats), the column filters on the blocks'
+    streams with missing read as 0, then get_association_stats (one
+    prefetch thread) runs twice: once under torch.profiler over all threads
+    with the plain-torch programs labelled (it also warms up, and its peak
+    device memory is read), then timed, with every launch count set to 0
+    just before and read right after it, the kernels' inputs recorded at
+    their wrappers and party 1's spans synchronized; the timed statistics
+    are decrypted collectively.  Returns the parties' results, the state
+    party 1 kept and the data.  device=None is the card; device="cpu"
+    rehearses the protocol (at a small preset and size)."""
+    import shutil
+    import tempfile
+
+    from sfgwas_tpu_torch.gwas import filestream as FS
+    from sfgwas_tpu_torch.gwas.assoc import get_association_stats
+    from sfgwas_tpu_torch.gwas.params import FilterParams
+    from sfgwas_tpu_torch.gwas.qc import snp_filter_with_precomputed_stats
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.ops import cuda_build
+    from sfgwas_tpu_torch.parallel.simulate import run_parties
+    from sfgwas_tpu_torch.utils import prof
+
+    ncov, m = 5, nblocks * m_block
+    data = _assoc_data(seed, n_loc, m_block, nblocks, ncov)
+    nrows_all = [0, n_loc, n_loc]
+    fp = FilterParams(*ASSOC_FILTER)
+    gate = threading.Barrier(3)
+    cuda = device is None or torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    state: dict = {}
+    tmp = tempfile.mkdtemp(prefix="sfgwas_assoc_")
+    try:
+        for pid in (1, 2):
+            g = data[pid][0]
+            for b in range(nblocks):
+                FS.write_geno_file(os.path.join(tmp, f"p{pid}_geno.{b}.bin"),
+                                   g[:, b * m_block : (b + 1) * m_block])
+            _count_file(g, os.path.join(tmp, f"p{pid}_gcount.bin"))
+
+        def blocks(pid, keep):
+            """The phase-3 view: each block's stream column-filtered by the
+            QC filter, missing read as 0, lazy."""
+            out = []
+            for b in range(nblocks):
+                st = FS.GenoFileStream(os.path.join(tmp, f"p{pid}_geno.{b}.bin"), n_loc, m_block,
+                                       replace_missing=False)
+                st.update_col_filt(keep[b * m_block : (b + 1) * m_block])
+                st.replace_missing = True
+                if st.num_cols_to_keep() > 0:
+                    out.append(FS.LazyBlock(st))
+            return out
+
+        def party(mpc):
+            pid = mpc.pid
+            t0 = time.time()
+            cps = PM.collective_init(mpc.net, preset, device=device)
+            sync()
+            out: dict = {"keygen_s": time.time() - t0, "rot_keys": len(cps.rot_keys)}
+            gate.wait(timeout=900)
+            if pid == 1:
+                prof.ENABLED, prof.SYNC = True, (torch.cuda.synchronize if cuda else None)
+            gate.wait(timeout=900)
+            prof.reset()
+            t0 = time.time()
+            with prof.span("qc"):
+                if pid > 0:
+                    ac, gc, miss = FS.read_geno_stats_file(
+                        os.path.join(tmp, f"p{pid}_gcount.bin"), m)
+                else:
+                    ac, gc, miss = np.zeros((2, m)), np.zeros((3, m)), np.zeros(m)
+                keep = snp_filter_with_precomputed_stats(
+                    mpc, ac, gc, miss, n_loc if pid > 0 else 0, 2 * n_loc, fp)
+            out["qc_s"] = time.time() - t0
+            out["qc_spans"] = prof.totals()
+            if pid > 0:
+                out["keep"] = keep
+            gate.wait(timeout=900)
+            if pid == 1:
+                prof.ENABLED, prof.SYNC = False, None
+
+            def call():
+                if pid > 0:
+                    g, pheno, cov = data[pid]
+                    return get_association_stats(mpc, cps, blocks(pid, keep), pheno, cov, None,
+                                                 nrows_all, num_blocks_parallel=1)
+                return get_association_stats(mpc, cps, None, None, ncov, None, nrows_all)
+
+            # the traced call (also the warm-up)
+            gate.wait(timeout=900)
+            if pid == 1 and cuda:
+                def traced():
+                    gate.wait(timeout=900)
+                    t0 = time.time()
+                    call()
+                    out["traced_call_s"] = time.time() - t0
+                    gate.wait(timeout=900)
+
+                torch.cuda.reset_peak_memory_stats()
+                with _Labelled(torch):
+                    out["profile"] = _profile(
+                        torch, traced, os.path.join(out_dir, "assoc_profile.txt"),
+                        all_threads=True, labels=[p[2] for p in PLAIN_PROGRAMS])
+                out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            else:
+                gate.wait(timeout=900)
+                call()
+                gate.wait(timeout=900)
+            sync()
+            # the timed call
+            gate.wait(timeout=900)
+            if pid == 1:
+                state["rec"] = _collective_recorder(k3=True)
+                _k2_recorder(state["rec"])
+                cuda_build.reset_launch_counts()
+                prof.ENABLED, prof.SYNC = True, (torch.cuda.synchronize if cuda else None)
+            gate.wait(timeout=900)
+            prof.reset()
+            t0 = time.time()
+            stats, filt = call()
+            sync()
+            out["call_s"] = time.time() - t0
+            gate.wait(timeout=900)
+            if pid == 1:
+                state["launches"] = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+                state["rec"].restore()
+            gate.wait(timeout=900)
+            if pid > 0:
+                with prof.span("decrypt"):
+                    pts = PM.collective_decrypt_many(mpc.net, cps, stats, -1)
+                    vals = np.concatenate([cps.ctx.decode(pt) for pt in pts])
+                out["stats"] = vals[: len(filt)][filt]
+                out["filter"] = filt
+                out["levels"] = sorted({(ct.nmod, ct.scale) for ct in stats})
+            out["spans"] = prof.totals()
+            gate.wait(timeout=900)
+            if pid == 1:
+                prof.ENABLED, prof.SYNC = False, None
+            return out
+
+        try:
+            res = run_parties(3, party, timeout=1500)
+        finally:
+            prof.ENABLED, prof.SYNC = False, None
+            if "rec" in state:
+                state["rec"].restore()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res, state, data
+
+
+def assoc_check(res, data, n_loc: int) -> dict:
+    """The revealed SNP filter against the plaintext QC oracle (exactly) and
+    the statistics against the plaintext oracle at each data party."""
+    want_keep = assoc_qc_oracle(data, ASSOC_FILTER, n_loc)
+    want = assoc_stat_oracle(data, want_keep)
+    out = {"snps": int(len(want_keep)), "kept": int(want_keep.sum())}
+    for pid in (1, 2):
+        r = res[pid]
+        got = r["stats"]
+        same_keep = bool(np.array_equal(r["keep"], want_keep))
+        ok_shape = got.shape == want.shape
+        out[pid] = {
+            "filter_equal": same_keep, "finite": bool(np.isfinite(got).all()),
+            "max_abs_err": float(np.abs(got - want).max()) if ok_shape else None,
+            "corr": float(np.corrcoef(got, want)[0, 1]) if ok_shape else None,
+            "stats": int(got.size), "levels": r["levels"],
+        }
+    return out
+
+
+def assoc_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
+    """Phase 9: the linear association phase (QC from precomputed counts,
+    then get_association_stats with the std inverse) at PN14QP438 for three
+    parties on the card at the example's block size, then every kernel of
+    the timed call against its plain version at every shape it launched it
+    with.  Appends the kernels' records to `kernels`; returns the phase's
+    record."""
+    from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.gwas import matmult as MM
+
+    params = get_params("PN14QP438")
+    n_loc, m_block, nblocks = 1000, 4546, 2
+    t0 = time.time()
+    res, state, data = _assoc_parties(torch, seed, out_dir, n_loc, m_block, nblocks)
+    t_calls = time.time() - t0
+    rec, launches = state["rec"], state["launches"]
+    hub = res[1]
+    checks = assoc_check(res, data, n_loc)
+    # seconds, synchronized: QC's, then the timed call's and the decrypt's
+    spans = {k: v[0] for k, v in {**hub["qc_spans"], **hub["spans"]}.items()}
+    profiled = hub["profile"]
+    keep = assoc_qc_oracle(data, ASSOC_FILTER, n_loc)
+    nkept_blocks = sum(1 for b in range(nblocks) if keep[b * m_block : (b + 1) * m_block].any())
+    line = {
+        "individuals": [0, n_loc, n_loc], "covariates": 5, "blocks": nblocks,
+        "block_snps": m_block, "checks": checks,
+        "reduced": {"snps": [EXAMPLE_SNPS, nblocks * m_block],
+                    "why": "time: one block's host encode takes seconds, and phase 7 holds the "
+                           "std inverse at the example's n"},
+        "keygen_s": hub["keygen_s"], "rotation_keys": hub["rot_keys"],
+        "qc_s_party1": hub["qc_s"], "call_s_party1": hub["call_s"],
+        "call_s_party2": res[2]["call_s"], "traced_call_s_party1": hub["traced_call_s"],
+        "span_s_party1": spans, "peak_mem_bytes": hub["peak_mem_bytes"],
+        "device_busy_ms": profiled["device_busy_ms"], "window_ms": profiled["window_ms"],
+        "idle_share": profiled["idle_share"], "host_readbacks": profiled["host_readbacks"],
+        "device_to_host_copies": profiled["dtoh_copies"],
+        "port_kernel_ms": profiled["port_kernel_ms"], "labelled_ms": profiled["labelled_ms"],
+        "host_cpu": f"{_cpu_model()}, {os.cpu_count()} logical cores",
+    }
+    _say(f"assoc phase: {json.dumps(line)}")
+    _say(f"launches: assoc path {json.dumps(launches)}")
+    for pid in (1, 2):
+        c = checks[pid]
+        if not c["filter_equal"]:
+            raise AssertionError(f"party {pid}: the revealed SNP filter differs from the oracle")
+        if (not c["finite"] or c["max_abs_err"] is None or not c["max_abs_err"] <= ASSOC_STAT_TOL
+                or not c["corr"] > ASSOC_MIN_CORR):
+            raise AssertionError(f"party {pid}: statistics off: max abs err {c['max_abs_err']}, "
+                                 f"corr {c['corr']}, finite {c['finite']}")
+    missing = [k for k in ASSOC_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the assoc path: {missing}")
+    # one block row a block: K2 once per kept block at each data party
+    if launches["mac_dense"] != 2 * nkept_blocks:
+        raise AssertionError(f"K2 launched {launches['mac_dense']} times for {nkept_blocks} "
+                             "blocks at 2 data parties")
+    if profiled["host_readbacks"]:
+        raise AssertionError(f"the assoc call read {profiled['host_readbacks']} device values "
+                             "back to the host")
+    if profiled["host_threads"] < 2:
+        raise AssertionError("the assoc profile traced one thread")
+    # K2 at every recorded shape (each record freed once checked), then the
+    # collective kernels
+    k2 = rec.args.pop("mac_dense")
+    for key in sorted(k2):
+        _k2_check(torch, MM, kernels, f"mac_dense (assoc) {list(key[:2])}", rec.real["mac_dense"],
+                  *k2.pop(key), key[3])
+        kernels[-1].update(launches=launches["mac_dense"], path="assoc",
+                           launches_at_shape=rec.counts[("mac_dense", key)])
+        torch.cuda.empty_cache()
+    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+        torch, rec, launches, params, kernels, "assoc")
+    line.update(launches=launches, profile=profiled, k1_total_ms=k1_total, k1_shapes=k1_shapes,
+                tree_shapes=tree_shapes, phase_s=time.time() - t0, calls_s=t_calls)
+    return line
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1587,25 +1994,12 @@ def main() -> int:
     q_mm = ctx._t(range(nmod))["q"]
     mu_mm = rns.barrett_mu64(params.basis, range(nmod), dev)
     runs = g["runs"]
-    acc_shape = (len(plan.segments) + 1, ncols, nmod, N)
-    zeros = lambda: torch.zeros(acc_shape, dtype=torch.int32, device=dev)  # noqa: E731
-    tacc0, tacc1 = zeros(), zeros()  # timed in place, as the product runs it
-    E = int(runs.run_start_host[-1])
-    nbytes = 4 * (2 * R0.shape[0] * ncols * nmod * N  # R0, R1: the row's babies
-                  + k_total * nmod * N  # the diagonal polys
-                  + 2 * 2 * runs.nruns * ncols * nmod * N)  # ACC rows read and written
-    macs = 2 * E * ncols * nmod * N
-    check(
-        "mac_dense", "mac_dense", "sfgwas_tpu_torch/csrc/mac_dense.cu",
-        "sfgwas_tpu/gwas/matmult.py:504", [runs.nruns, E, R0.shape[0], ncols, nmod, N],
-        lambda: MM.mac_dense(zeros(), zeros(), R0, R1, g["polys"], runs, q_mm, mu_mm, logn),
-        lambda: MM.mac_dense_plain(zeros(), zeros(), R0, R1, g["polys"], runs, q_mm),
-        5, 1, nbytes, 2 * macs,
-        timed=(lambda: MM.mac_dense(tacc0, tacc1, R0, R1, g["polys"], runs, q_mm, mu_mm, logn),
-               lambda: MM.mac_dense_plain(tacc0, tacc1, R0, R1, g["polys"], runs, q_mm)),
-    )
-    del tacc0, tacc1
+    nacc = len(plan.segments) + 1
+    _k2_check(torch, MM, kernels, "mac_dense", MM.mac_dense, R0, R1, g["polys"], runs, q_mm,
+              mu_mm, logn, nacc)
     # the real accumulators of this block row, for K3's grouped shape
+    acc_shape = (nacc, ncols, nmod, N)
+    zeros = lambda: torch.zeros(acc_shape, dtype=torch.int32, device=dev)  # noqa: E731
     acc0, acc1 = MM.mac_dense(zeros(), zeros(), R0, R1, g["polys"], runs, q_mm, mu_mm, logn)
     del R0, R1
 
@@ -1632,11 +2026,13 @@ def main() -> int:
     ss = ss_phase(torch, args.seed, out_dir, kernels)
     # ---- 8. the CholeskyQR2 covariate basis
     qr = qr_phase(torch, args.seed, out_dir, kernels)
-    # the shapes --tree times: K1's of one product, K4's of all three paths,
-    # bs_mask's and K6's of the MHE and SS phases
+    # ---- 9. the linear association phase
+    assoc = assoc_phase(torch, args.seed, out_dir, kernels)
+    # the shapes --tree times: K1's of one product, K4's of every path,
+    # bs_mask's and K6's of the collective phases
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
               "crt_lift": []}
-    for phase in (mhe, ss, qr):
+    for phase in (mhe, ss, qr, assoc):
         for key, found in phase.pop("tree_shapes").items():
             shapes[key] += [s for s in found if s not in shapes[key]]
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
@@ -1672,6 +2068,7 @@ def main() -> int:
         "mhe": mhe,
         "ss": ss,
         "qr": qr,
+        "assoc": assoc,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

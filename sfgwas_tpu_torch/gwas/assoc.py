@@ -1,18 +1,35 @@
-"""Association tests (counterpart of sfgwas_tpu/gwas/assoc.py).  For now
-only the combined covariate basis, compute_combined_q; the linear
-statistics, the standard-deviation inverse and the logistic path follow
-(ROADMAP A6, A9)."""
+"""Association tests (counterpart of sfgwas_tpu/gwas/assoc.py; the Go
+sfgwas's gwas/assoc.go): the combined covariate basis (compute_combined_q)
+and the linear statistics with their standard-deviation inverse
+(get_association_stats, compute_std_inv).
+
+The linear statistic of a SNP is stdinvx * stdinvy * sxy, with y~ the
+phenotype projected off the covariate basis Q: one concatenated product
+[Q | y~] x G per genotype block gives Q^T G and sxy; the variances go
+through the SS domain for their inverse square roots.  The logistic path
+follows (ROADMAP A9).
+"""
 
 from __future__ import annotations
 
+import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..crypto import basics as B
-from ..mpc import mhe
+from ..mpc import mhe, ss_he
 from ..mpc.mhe import CryptoParams
 from ..mpc.mpc import MPC
+from ..ops import ring as R
+from ..utils import prof
+from ..utils.log import log
+from . import filestream as fs
+from . import matmult as MM
+from . import utilities as U
+from .qc import hub_consensus
 from .qrfact import net_qr
 
 
@@ -61,3 +78,263 @@ def compute_combined_q(
         qr_band = min(cps.ctx.nq, cps.rot_nmod + 2)
         Q = mhe.bootstrap_mat_all(mpc.net, cps, Q, target_nmod=qr_band)
     return Q, ncols
+
+
+def get_association_stats(
+    mpc: MPC,
+    cps: CryptoParams,
+    geno_blocks,  # the local int8 blocks (arrays or fs.LazyBlock); None at party 0
+    pheno: Optional[np.ndarray],
+    cov,  # local covariates [n_local, ncov]; at party 0 the count ncov
+    Qpc: Optional[B.CipherMatrix],
+    nrows_all: List[int],
+    cov_all_ones: bool = False,
+    cache_prefix: Optional[str] = None,
+    use_cached_combined_q: bool = False,
+    qr_method: str = "cholqr2",
+    num_blocks_parallel: int = 1,
+    debug: bool = False,
+):
+    """Linear association statistics (GetAssociationStats of the Go sfgwas,
+    gwas/assoc.go:443-884).  Returns (stats CipherVector, SNP filter) at the
+    data parties, (None, None) at party 0.
+
+    With cache_prefix, the combined basis and each block's local product
+    (before the aggregate) are cached as ciphertext files; they are read
+    back only under a key bundle restored from a key cache
+    (cps.keys_from_cache), the basis only with use_cached_combined_q and
+    when every data party has it."""
+    pid = mpc.pid
+    slots = cps.slots if cps else 0
+    tot_n = sum(nrows_all[1:])
+    inv_n = 1.0 / tot_n
+    sqrt_inv_n = math.sqrt(inv_n)
+
+    # ciphertext caches decrypt only under the key bundle that wrote them
+    ct_cache_ok = bool(cps and cps.keys_from_cache)
+    # cache names carry the combined basis' column count, so a run with
+    # another covariate basis misses
+    ncov_n = cov.shape[1] if pid > 0 else int(cov)
+    qexp = ncov_n + (0 if cov_all_ones else 1) + (len(Qpc) if Qpc else 0)
+    qcomb_cache = f"{cache_prefix}_Qcomb.q{qexp}.npz" if cache_prefix else None
+    want = bool(
+        use_cached_combined_q and ct_cache_ok and qcomb_cache is not None
+        and os.path.exists(qcomb_cache)
+    )
+    # the basis' dealer rounds involve party 0: every party takes one branch
+    with prof.span("combined_q"):
+        if hub_consensus(mpc, want):
+            Q = U.load_cipher_matrix(cps, qcomb_cache) if pid > 0 else None
+        else:
+            Q, _ = compute_combined_q(
+                mpc, cps, cov, Qpc, nrows_all, cov_all_ones, qr_method=qr_method
+            )
+            if pid > 0 and qcomb_cache:
+                U.save_cipher_matrix(cps, Q, qcomb_cache)
+
+    num_blocks = len(geno_blocks) if pid > 0 else 0
+    if pid == mpc.hub_pid:
+        mpc.net.send_int(num_blocks, 0)
+    elif pid == 0:
+        num_blocks = mpc.net.recv_int(mpc.hub_pid)
+
+    if pid > 0:
+        with prof.span("assoc_ynew"):
+            # y~ = (I - Q Q^T) y
+            y_pt = B.encode_float_vector(cps, pheno.reshape(-1))
+
+            def mmplainfn(cp, a, Bm, j):
+                return B.cpmult(cp, a, Bm[j])
+
+            ynew = MM.dc_matmul_aat_b(cps, mpc, Q, [y_pt], nrows_all, 1, mmplainfn)
+            ynew0 = B.cmult_const(cps, ynew[0], inv_n, rescale=True)
+            # refreshed two primes below the top, where the refresh resets
+            # the scale exactly: the cpadd below adds y at exactly the
+            # projection's scale
+            ynew0 = mhe.bootstrap_mat_all(mpc.net, cps, [ynew0], target_nmod=cps.ctx.nq - 2)[0]
+            ynew0 = [cps.ctx.mul_const_int(ct, -1) for ct in ynew0]
+            ynew0 = B.cpadd(cps, ynew0, y_pt)
+        if debug and cache_prefix:
+            # y~ is row-partitioned: each party's slice
+            for p in range(1, mpc.net.nparty):
+                U.save_matrix_collective(
+                    mpc.net, cps, [ynew0], nrows_all[p], p,
+                    f"{cache_prefix}_dbg_ynew.party{p}.txt",
+                )
+
+        # [Q | y~]: Q's first column is the normalized all-ones vector, so
+        # sx = sy = 0
+        concat = list(Q) + [ynew0]
+
+        # one prefetch thread loads and encodes (host only, no draws) up to
+        # num_blocks_parallel blocks ahead while the card multiplies; cache
+        # hits are known up front and never prefetched
+        nb = len(geno_blocks)
+        nahead = max(1, int(num_blocks_parallel))
+        cache_files = [
+            f"{cache_prefix}_assoc_q{qexp}_{b}.npz" if cache_prefix else None for b in range(nb)
+        ]
+        hit = [cf is not None and ct_cache_ok and os.path.exists(cf) for cf in cache_files]
+
+        def host_prep(b):
+            G = fs.load_block(geno_blocks[b])
+            pre = MM.preprocess_matrix_host(cps, G)
+            dsum = G.astype(np.float64).sum(axis=0)
+            dsq = (G.astype(np.float64) ** 2).sum(axis=0)
+            return pre, dsum, dsq, G.shape[1]
+
+        pool = ThreadPoolExecutor(1, thread_name_prefix="assoc-prefetch")
+        futures = {}
+        next_pf = 0
+
+        def schedule(depth):
+            nonlocal next_pf
+            while len(futures) < depth and next_pf < nb:
+                if not hit[next_pf]:
+                    futures[next_pf] = pool.submit(host_prep, next_pf)
+                next_pf += 1
+
+        schedule(nahead)
+        p_ = cps.ctx.basis.primes
+        sxx_blocks, sxy_blocks, filters = [], [], []
+        for b, blk in enumerate(geno_blocks):
+            log(f"pid{pid} assoc block {b + 1}/{nb}")
+            with prof.span("assoc_block"):
+                cache_file = cache_files[b]
+                if hit[b]:
+                    # a hit replaces only local compute: the aggregate,
+                    # bootstrap and encrypt pattern below is the same
+                    with np.load(cache_file) as z:
+                        dsum, dsq = z["dsum"], z["dsq"]
+                    out = U.load_cipher_matrix(cps, cache_file)
+                    msnp = blk.shape[1]
+                else:
+                    with prof.span("assoc_encode_wait"):
+                        pre, dsum, dsq, msnp = futures.pop(b).result()
+                    schedule(nahead)
+                    with prof.span("assoc_mm"):
+                        out, _, _ = MM.mat_mult_stream(cps, concat, None, host_pre=pre)
+                    del pre
+                    if cache_file:
+                        U.save_cipher_matrix(cps, out, cache_file,
+                                             extra={"dsum": dsum, "dsq": dsq})
+                with prof.span("assoc_agg_bs"):
+                    out = mhe.aggregate_cmat(mpc.net, cps, out)
+                    out = mhe.bootstrap_mat(mpc.net, cps, out, -1)
+
+            with prof.span("assoc_sxx"):
+                nq_cols = len(Q)
+                # Q^T G / sqrt(n) without the all-ones column, whose part
+                # the dosage sums carry
+                Bmat = [
+                    B.cmult_const(cps, out[i + 1], sqrt_inv_n, rescale=True)
+                    for i in range(nq_cols - 1)
+                ]
+                sxy_blocks.append(out[nq_cols])
+
+                sx2 = mhe.aggregate_cvec(mpc.net, cps, B.encrypt_float_vector(cps, dsum))
+                sx2 = B.cmult_const(cps, sx2, sqrt_inv_n, rescale=True)
+                # dsq is encoded at exactly the squared terms' scale (s^2 over
+                # the top prime pair): every party derives the same s_tt, so
+                # the subtractions and the aggregate add at equal scales
+                terms = Bmat + [sx2]
+
+                def _sq_scale(t):
+                    return t.scale * t.scale / p_[t.nmod - 1] / p_[t.nmod - 2]
+
+                s_tt = _sq_scale(terms[0][0])
+                sxx = B.encrypt_float_vector(cps, dsq, scale=s_tt)
+                if pid == mpc.hub_pid:
+                    for term_vec in terms:
+                        tt = B.cmult(cps, term_vec, term_vec)
+                        if abs(tt[0].scale / s_tt - 1) > 1e-9:
+                            # an off-chain term: exact retarget to s_tt
+                            tt = [B.mask_trunc(cps, t, cps.slots, target_scale=s_tt) for t in tt]
+                        nm = min(sxx[0].nmod, tt[0].nmod)
+                        sxx = [
+                            cps.ctx.sub(cps.ctx.drop_to(a_, nm), cps.ctx.drop_to(b_, nm))
+                            for a_, b_ in zip(sxx, tt)
+                        ]
+                sxx = mhe.aggregate_cvec(mpc.net, cps, sxx)
+                sxx_blocks.append(sxx)
+
+            nct = 1 + (msnp - 1) // slots
+            fl = np.zeros(nct * slots, dtype=bool)
+            fl[:msnp] = True
+            filters.append(fl)
+        pool.shutdown(wait=False)
+
+        sxy = [ct for blk in sxy_blocks for ct in blk]
+        varx = [ct for blk in sxx_blocks for ct in blk]
+        out_filter = np.concatenate(filters)
+        nsnps = int(out_filter.sum())
+        num_ctx = len(varx)
+        if pid == mpc.hub_pid:
+            mpc.net.send_int(num_ctx, 0)
+            mpc.net.send_int(nsnps, 0)
+
+        if debug and cache_prefix:
+            # aggregated quantities: the same at every data party
+            U.save_matrix_collective(mpc.net, cps, [sxy], nsnps, -1,
+                                     f"{cache_prefix}_dbg_sxy.txt")
+            U.save_matrix_collective(mpc.net, cps, [varx], nsnps, -1,
+                                     f"{cache_prefix}_dbg_varx.txt")
+
+        with prof.span("assoc_syy"):
+            # vary = syy (sy = 0 with the all-ones column in Q)
+            ysq = B.cmult(cps, ynew0, ynew0)
+            syy = mhe.aggregate_ct(mpc.net, cps, B.inner_sum_all(cps, ysq))
+            vary = mhe.collective_bootstrap(mpc.net, cps, syy, -1)
+    else:
+        num_ctx = mpc.net.recv_int(mpc.hub_pid)
+        nsnps = mpc.net.recv_int(mpc.hub_pid)
+        varx = [None] * num_ctx
+        vary = None
+        sxy = None
+        out_filter = None
+
+    mpc.assert_sync()
+    with prof.span("std_inv"):
+        stdinvx, stdinvy = compute_std_inv(mpc, cps, varx, vary, nsnps, out_filter)
+
+    if pid > 0:
+        if debug and cache_prefix:
+            U.save_matrix_collective(mpc.net, cps, [stdinvx], nsnps, -1,
+                                     f"{cache_prefix}_dbg_stdinvx.txt")
+        stats = B.cmult(cps, sxy, stdinvx)
+        stats = B.cmult_scalar(cps, stats, stdinvy)
+        return stats, out_filter
+    return None, None
+
+
+def compute_std_inv(mpc: MPC, cps: CryptoParams, varx, vary, nsnps: int, filt):
+    """varx, vary -> their inverse square roots through the SS domain
+    (computeStdInv of the Go sfgwas, gwas/assoc.go:887-953): the kept
+    SNPs' variances and the phenotype's go through one
+    sqrt_and_sqrt_inverse; returns (stdinvx CipherVector, stdinvy
+    ciphertext with every slot holding the value) at the data parties."""
+    ring = mpc.ring
+    pid = mpc.pid
+    slots = cps.slots if cps else 1
+    varx_ss = ss_he.cvec_to_ss(mpc, cps, varx, -1, slots * len(varx))
+    vary_ss = ss_he.ciphertext_to_ss(mpc, cps, vary, -1, 1)
+
+    n_all = varx_ss.shape[0]
+    var_ss = ring.zeros((nsnps + 1,))
+    if pid > 0:
+        idx = np.where(filt)[0][:nsnps]
+        var_ss = R.aset(var_ss, slice(None, nsnps), np.asarray(varx_ss)[idx])
+    var_ss = R.aset(var_ss, nsnps, np.asarray(vary_ss)[0])
+
+    stdinv_ss = mpc.sqrt_and_sqrt_inverse(var_ss)[1]
+
+    stdinvx_ss = ring.zeros((n_all,))
+    if pid > 0:
+        stdinvx_ss = R.aset(stdinvx_ss, idx, np.asarray(stdinv_ss)[:nsnps])
+
+    stdinvx_cv = ss_he.ss_to_cmat(mpc, cps, stdinvx_ss[None])
+    stdinvy_ct = ss_he.ss_to_ciphertext(mpc, cps, stdinv_ss[nsnps : nsnps + 1][None])
+    if pid > 0:
+        stdinvy_ct = B.rotate_and_add(cps, stdinvy_ct, cps.slots)
+        return stdinvx_cv[0], stdinvy_ct
+    return None, None

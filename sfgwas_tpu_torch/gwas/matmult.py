@@ -10,6 +10,11 @@ giant-step rotations of all accumulated groups run as one grouped
 keyswitch; a combine per block column and one batched double rescale
 finish.  Diagonals are encoded once (preprocess_matrix) and stay on the
 device.  Nothing in a product reads a value back from the device.
+
+The streamed product (mat_mult_stream) encodes one genotype block, on the
+host (preprocess_matrix_host, safe on a prefetch thread) and then on the
+device (finish_preprocess_matrix), multiplies it once and releases its
+plan; dc_matmul_aat_b is the distributed A A^T B over row-partitioned A.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +30,7 @@ import torch
 from ..crypto import basics as B
 from ..crypto import ckks as C
 from ..crypto.params import MM_LEVELS
+from ..mpc import mhe
 from ..mpc.mhe import CryptoParams
 from ..ops import rns
 from ..ops.cuda_build import CudaKernel, check, ptr
@@ -156,11 +162,17 @@ def encode_block_diagonals_host(cps: CryptoParams, block: np.ndarray):
     return shifts // d, shifts % d, d, _encode_diag_host(cps, vecs)
 
 
+def finish_block_diagonals(cps: CryptoParams, host_blk, nmod: int) -> DiagBlock:
+    """Device stage of encode_block_diagonals: an
+    encode_block_diagonals_host result -> a DiagBlock on the device."""
+    giants, babies, d, chunks = host_blk
+    return DiagBlock(giants, babies, _encode_diag_device(cps, chunks, nmod), d)
+
+
 def encode_block_diagonals(cps: CryptoParams, block: np.ndarray, nmod: int) -> DiagBlock:
     """All generalized diagonals of one block: the diagonal of shift s is
     d_s[j] = X[(j+s) mod S, j], pre-rotated right by d*giant."""
-    giants, babies, d, chunks = encode_block_diagonals_host(cps, block)
-    return DiagBlock(giants, babies, _encode_diag_device(cps, chunks, nmod), d)
+    return finish_block_diagonals(cps, encode_block_diagonals_host(cps, block), nmod)
 
 
 def preprocess_matrix(
@@ -176,6 +188,25 @@ def preprocess_matrix(
          for bj in range(0, m, S)]
         for bi in range(0, n, S)
     ]
+
+
+def preprocess_matrix_host(cps: CryptoParams, mat: np.ndarray):
+    """Host stage of preprocess_matrix for every block of `mat` (diagonal
+    scatter and FFT fold, numpy and CPU torch only), so a prefetch thread
+    can encode block b+1 while the device multiplies block b."""
+    S = cps.slots
+    n, m = mat.shape
+    return [
+        [encode_block_diagonals_host(cps, mat[bi : bi + S, bj : bj + S])
+         for bj in range(0, m, S)]
+        for bi in range(0, n, S)
+    ]
+
+
+def finish_preprocess_matrix(cps: CryptoParams, host_rows, nmod: int) -> List[List[DiagBlock]]:
+    """Device stage: per-prime reduction and NTT of a preprocess_matrix_host
+    result."""
+    return [[finish_block_diagonals(cps, hb, nmod) for hb in row] for row in host_rows]
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +516,13 @@ def _plan_for(cps, cache, nmod, row_batch: int = 1) -> _MatmulPlan:
     return plan
 
 
+def release_plan(cache) -> None:
+    """Drop the staged plan of a one-shot diagonal cache, so its device
+    buffers (GBs of encoded polys per block at PN14) free as soon as the
+    block is consumed."""
+    _plan_cache.pop(id(cache), None)
+
+
 # ---------------------------------------------------------------------------
 # the product
 
@@ -581,3 +619,103 @@ def mat_mult_cached(
         [C.Ciphertext(r0f[bj, i], r1f[bj, i], nmod - 2, out_scale) for bj in range(nbc)]
         for i in range(s)
     ]
+
+
+def mat_mult_stream(
+    cps: CryptoParams,
+    A: B.CipherMatrix,
+    geno: Optional[np.ndarray],
+    compute_sums: bool = False,
+    square: bool = False,
+    host_pre=None,
+):
+    """Multiply the CipherMatrix with one genotype block (MatMult4Stream of
+    the Go sfgwas), optionally squaring the block elementwise and returning
+    the plaintext dosage sums and square sums per column.  host_pre, a
+    preprocess_matrix_host result for this block, skips the host encode
+    (the prefetched path).  Returns (product, sums, square sums)."""
+    if host_pre is not None:
+        assert not compute_sums and not square, (
+            "prefetched path: sums and squaring happen on the prefetch thread"
+        )
+        cache = finish_preprocess_matrix(cps, host_pre, mm_nmod(cps))
+    else:
+        mat = np.asarray(geno)
+        if square:
+            mat = mat * mat
+        cache = preprocess_matrix(cps, mat, mm_nmod(cps))
+    out = mat_mult_cached(cps, A, cache)
+    # a streamed block is multiplied once: free the plan's device buffers now
+    release_plan(cache)
+    dosage_sum = dosage_sq_sum = None
+    if compute_sums:
+        dosage_sum = geno.astype(np.float64).sum(axis=0)
+        dosage_sq_sum = (geno.astype(np.float64) ** 2).sum(axis=0)
+    return out, dosage_sum, dosage_sq_sum
+
+
+# ---------------------------------------------------------------------------
+# Distributed A A^T B (DCMatMulAAtB of the Go sfgwas, gwas/matmult.go:121-194)
+
+
+def dc_matmul_aat_b(
+    cps: CryptoParams,
+    mpc,
+    A: B.CipherMatrix,
+    Bmat,
+    nrows_all: List[int],
+    ncol_out: int,
+    inner_fn: Optional[Callable],
+    bs_target: Optional[int] = None,
+) -> B.CipherMatrix:
+    """For A row-partitioned across parties: out = A (A^T B), computed per
+    column of A from aggregated inner products.  inner_fn(cps, A[c], Bmat, j)
+    gives the local products of column c with column j of B; None is the
+    batched ciphertext-ciphertext inner product.  The aggregated cross terms
+    are refreshed to bs_target (default two primes below the top, where the
+    refresh resets the scale exactly) before the outer product."""
+    slots = cps.slots
+    pid = mpc.pid
+    ctx = cps.ctx
+    n_ct = ((nrows_all[pid] - 1) // slots) + 1 if pid > 0 else 1
+    if bs_target is None:
+        bs_target = ctx.nq - 2
+    batched = inner_fn is None
+    # accumulate with first-term adoption (a czeros start would impose the
+    # preset scale on products whose scale drifted in rescaling)
+    out = [None] * ncol_out
+    for c in range(len(A)):
+        if batched:
+            prods = None
+            for t in range(n_ct):
+                row = B.cmult_one_to_many(cps, A[c][t], [Bmat[j][t] for j in range(ncol_out)])
+                prods = row if prods is None else [ctx.add(p, r) for p, r in zip(prods, row)]
+            ctq_loc = B.rotate_and_add_many(cps, prods, slots)
+        else:
+            ctq_loc = [B.inner_sum_all(cps, inner_fn(cps, A[c], Bmat, j))
+                       for j in range(ncol_out)]
+        ctq = mhe.aggregate_cvec(mpc.net, cps, ctq_loc)
+        ctq = mhe.bootstrap_vec(mpc.net, cps, ctq, -1, target_nmod=bs_target)
+        if batched:
+            for t in range(n_ct):
+                col = B.cmult_one_to_many(cps, A[c][t], ctq)
+                for j in range(ncol_out):
+                    if out[j] is None:
+                        out[j] = [None] * n_ct
+                    prev = out[j][t]
+                    if prev is None:
+                        out[j][t] = col[j]
+                    else:
+                        nm = min(prev.nmod, col[j].nmod)
+                        out[j][t] = ctx.add(ctx.drop_to(prev, nm), ctx.drop_to(col[j], nm))
+        else:
+            for j in range(ncol_out):
+                cc = B.cmult_scalar(cps, A[c], ctq[j])
+                out[j] = cc if out[j] is None else B.cadd(cps, _match_vec(cps, out[j], cc), cc)
+    return out
+
+
+def _match_vec(cps, X, ref):
+    """X dropped, ciphertext by ciphertext, to the lower level of itself and
+    ref."""
+    return [cps.ctx.drop_to(x, min(x.nmod, r.nmod)) for x, r in zip(X, ref)]

@@ -55,6 +55,10 @@ class CryptoParams:
     rlk: Optional[C.KSwitchKey]
     rot_keys: Dict[int, C.KSwitchKey] = field(default_factory=dict)
     enc_rng: np.random.Generator = None
+    # True iff this bundle was restored from a key cache: only then are
+    # ciphertexts cached by an earlier run decryptable (a fresh collective
+    # keygen invalidates every stored ciphertext)
+    keys_from_cache: bool = False
     _kstack: Dict = field(default_factory=dict, repr=False)
     # encoded mask-plaintext stacks of crypto/basics.py, per bundle (a
     # bundle's preset and levels are its own)

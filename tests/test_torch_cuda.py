@@ -605,3 +605,59 @@ def test_cholqr_on_card_matches_cpu(dev, preset, slots, nrows):
                 assert (an, as_) == (bn, bs)
                 np.testing.assert_array_equal(a0, b0)
                 np.testing.assert_array_equal(a1, b1)
+
+
+def test_assoc_on_card_matches_cpu(dev):
+    """The linear association statistics (get_association_stats) of three
+    parties on tests/test_e2e_gwas.py's shape at TEST8 (24 and 20
+    individuals, 50 SNPs in 2 blocks with missing calls read as 0, 2
+    covariates) on the card give the ciphertexts of the port's CPU run under
+    the same keys, PRG keys and generators, and launch all six kernels."""
+    from sfgwas_tpu_torch import interop
+    from sfgwas_tpu_torch.gwas.assoc import get_association_stats
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.parallel.simulate import run_parties
+
+    nrows, m = [0, 24, 20], 50
+    keys = run_parties(3, lambda mpc: interop.bundle_arrays(
+        PM.collective_init(mpc.net, "TEST8", device="cpu")))
+    rng = np.random.default_rng(99)
+    g = rng.integers(-1, 3, size=(sum(nrows), m)).astype(np.int8)
+    pheno = rng.normal(size=sum(nrows)) + 0.3 * np.maximum(g[:, 0], 0)
+    cov = rng.normal(size=(sum(nrows), 2))
+    rows = {1: slice(0, nrows[1]), 2: slice(nrows[1], sum(nrows))}
+
+    def run(device):
+        def fn(mpc):
+            pid = mpc.pid
+            mpc.rand.table[pid] = np.random.Generator(np.random.Philox(key=[9, pid]))
+            ctx = PC.CkksContext(get_params("TEST8"), device=device)
+            cps = interop.crypto_params(ctx, enc_rng=np.random.default_rng(100 + pid),
+                                        **keys[pid])
+            if pid == 0:
+                get_association_stats(mpc, cps, None, None, 2, None, nrows)
+                return None
+            gl = np.maximum(g[rows[pid]], 0)
+            stats, filt = get_association_stats(
+                mpc, cps, [gl[:, :25], gl[:, 25:]], pheno[rows[pid]], cov[rows[pid]], None,
+                nrows)
+            return filt, interop.cipher_matrix_arrays(
+                [[PC.Ciphertext(ct.c0.cpu(), ct.c1.cpu(), ct.nmod, ct.scale) for ct in stats]])
+
+        return run_parties(3, fn)
+
+    cpu = run("cpu")
+    cuda_build.reset_launch_counts()
+    card = run(dev)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+    for k in ("ntt_fwd", "ntt_inv", "mac_dense", "ks_digit_product", "uniform_mod", "bs_mask",
+              "bs_combine", "crt_lift"):
+        assert launched[k] > 0, k
+    for pid in (1, 2):
+        np.testing.assert_array_equal(card[pid][0], cpu[pid][0])
+        assert len(card[pid][1][0]) == len(cpu[pid][1][0]) == 2
+        for (a0, a1, an, as_), (b0, b1, bn, bs) in zip(card[pid][1][0], cpu[pid][1][0]):
+            assert (an, as_) == (bn, bs)
+            np.testing.assert_array_equal(a0, b0)
+            np.testing.assert_array_equal(a1, b1)

@@ -47,7 +47,9 @@ def test_import_pulls_in_no_jax():
     assert len(MODULES) >= 12
     for m in ("mpc.prg", "parallel.transport", "parallel.simulate", "mpc.mhe", "ops.threefry",
               "ops.ring", "ops.native_ring", "mpc.mpc", "mpc.boolean", "mpc.linalg",
-              "mpc.ss_he", "utils.ddfloat", "crypto.basics", "gwas.qrfact", "gwas.assoc"):
+              "mpc.ss_he", "utils.ddfloat", "crypto.basics", "gwas.qrfact", "gwas.assoc",
+              "gwas.params", "gwas.filestream", "gwas.utilities", "gwas.qc", "gwas.pgen",
+              "gwas.matmult"):
         assert "sfgwas_tpu_torch." + m in MODULES
 
 
@@ -73,7 +75,8 @@ def test_protocol_layers_pick_no_device(monkeypatch):
     bundle's context: they name no device of their own (so no CPU path can
     stand in for the card), and a bundle built with the default device
     needs a card."""
-    for m in ("crypto/basics.py", "gwas/qrfact.py", "gwas/assoc.py"):
+    for m in ("crypto/basics.py", "gwas/qrfact.py", "gwas/assoc.py", "gwas/qc.py",
+              "gwas/utilities.py"):
         src = (PKG / m).read_text()
         assert not re.search(r"""["']cpu["']|torch\.device\(|\.cpu\(\)""", src), m
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
