@@ -121,7 +121,29 @@ Phases (any failed check raises; the exit code is then nonzero):
     once per block at each data party.  K1, K2, K3, K4, K5 and K6 are held
     bit for bit against their plain versions at every shape the timed call
     launched them with, recorded at their wrappers, and timed;
-10. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+10. the linear skip-PCA study through the port's CLI at the example's
+    width and scale: cli.main(["--local-sim", "3", "--config-global", ...])
+    in this process with no --platform (the card), a config of
+    config/configGlobalSkipPCA.toml's flags (PN14QP438, its thresholds, QC
+    from the plink2 counts, use_cached_keys, use_cached_qc,
+    use_cached_combined_q, skip_pca) and paths in {pid} form, on data from
+    --seed in a temporary directory removed at the end: per data party
+    1000 individuals, 5 covariates and 100,000 SNPs in 22 blocks (21 x
+    4546 + 4534; phase 9's generators).  Run 1 is fresh, with every launch
+    count set to 0 before it and read after it: all six kernels launched,
+    K2 once a block at each data party (44) and held bit for bit against
+    its plain version on the same inputs right after each launch, the
+    revealed filter equal to the QC oracle and the statistics within 2e-2
+    of the plaintext oracle with corr > 0.999.  Run 2 resumes from run 1's
+    caches: every party's bundle restored from its key directory, K2
+    launched 0 times, the statistics within 2e-3 of run 1's.  Each run's
+    command seconds, party 1's qc / pca / assoc seconds from the
+    protocol's own line, its host-clock spans, keygen or restore seconds
+    per party, key-directory write seconds, peak device memory and peak
+    host RSS are recorded; then K2 is timed at its first launch and K1,
+    K3, K4, K5 and K6 are held against their plain versions at every shape
+    of run 1 that no earlier phase checked, recorded at their wrappers;
+11. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
@@ -130,8 +152,9 @@ Writes the record to chiprun_out/chip_smoke.json, the shapes --tree times
 to chiprun_out/shapes.json, the profiler's tables to
 chiprun_out/mm_profile.txt, chiprun_out/bs_profile.txt,
 chiprun_out/ss_profile.txt, chiprun_out/qr_profile.txt and
-chiprun_out/assoc_profile.txt and the SASS listings to
-chiprun_out/sass_main_*.txt.
+chiprun_out/assoc_profile.txt, the SASS listings to
+chiprun_out/sass_main_*.txt and party 1's assoc.txt of phase 10's runs to
+chiprun_out/assoc_fresh.txt and chiprun_out/assoc_resumed.txt.
 
 --tree DIR --shapes FILE times only K1 (at one product's shapes), K4 (at
 every path's draws), bs_mask (at the MHE and SS phases' row sets) and K6
@@ -408,12 +431,13 @@ class _Recorder(_Patches):
         self.real: dict = {}
         self._lock = threading.Lock()
 
-    def wrap(self, module, attr: str, name: str, key_of):
+    def wrap(self, module, attr: str, name: str, key_of, keep_args: bool = True):
         def make(real):
             def wrapped(*a):
                 k = key_of(*a)
                 with self._lock:
-                    self.args[name].setdefault(k, a)
+                    if keep_args:
+                        self.args[name].setdefault(k, a)
                     self.counts[(name, k)] += 1
                 return real(*a)
 
@@ -676,7 +700,8 @@ def _collective_recorder(k3: bool = False) -> "_Recorder":
     from sfgwas_tpu_torch.ops import cuda_ntt, rns
 
     rec = _Recorder()
-    rec.wrap(cuda_ntt, "ntt_b_kernel", "k1", _k1_key)
+    # K1 is checked on random residues of the recorded rows' primes
+    rec.wrap(cuda_ntt, "ntt_b_kernel", "k1", _k1_key, keep_args=False)
     if k3:
         rec.wrap(C, "ks_digit_product", "ks_digit_product",
                  lambda ext, k0, k1, q, mu, logn: (_k3_site(),) + tuple(ext.shape)
@@ -690,11 +715,23 @@ def _collective_recorder(k3: bool = False) -> "_Recorder":
     return rec
 
 
-def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str):
+# (kernel, key) of every shape _collective_kernel_checks has held, so that a
+# later phase can check only the shapes no earlier phase checked
+CHECKED: set = set()
+
+
+def _k1_shape_key(shape) -> tuple:
+    inverse, rows, dims = shape[:3]
+    return "k1", (bool(inverse), tuple(rows), tuple(dims))
+
+
+def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str,
+                              new_only: bool = False):
     """K1 (at every recorded direction, rows and shape, on random residues
     of the rows' primes), K4, K5 and K6 (on the recorded inputs) against
     their plain versions, each record tagged with `path` and its launches
-    there.  Returns (K1's shapes, K1's total ms over the path, the shapes
+    there; with new_only, only at the shapes no earlier call checked.
+    Returns (K1's shapes, K1's total ms over the shapes checked, the shapes
     --tree times)."""
     from sfgwas_tpu_torch.crypto import ckks as C
     from sfgwas_tpu_torch.mpc import mhe as PM
@@ -707,13 +744,20 @@ def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str):
     for sym, inv in (("ntt_fwd", False), ("ntt_inv", True)):
         if sum(n for i, _, _, n in k1_shapes if i == inv) != launches[sym]:
             raise AssertionError(f"K1 shapes recorded {k1_shapes} miss launches of {sym}")
+    todo = [s for s in k1_shapes if not (new_only and _k1_shape_key(s) in CHECKED)]
+    CHECKED.update(_k1_shape_key(s) for s in k1_shapes)
+    for name, found in rec.args.items():
+        for key in list(found):
+            if new_only and (name, key) in CHECKED:
+                del found[key]
+            CHECKED.add((name, key))
     first = len(kernels)
-    k1_total = _k1_rows(torch, cuda_ntt, rns, params.basis, k1_shapes, torch.device("cuda", 0),
+    k1_total = _k1_rows(torch, cuda_ntt, rns, params.basis, todo, torch.device("cuda", 0),
                         kernels, per="launches_at_shape")
     for k in kernels[first:]:
         k["launches"], k["path"] = launches[k["kernel"]], path
     _say(f"K1 over the {path} path: {k1_total:.4f} ms (sum of launches x ms) at "
-         f"{len(k1_shapes)} shapes")
+         f"{len(todo)} of its {len(k1_shapes)} shapes")
 
     # K4, K5 and K6 at every recorded shape
     N = params.n
@@ -1781,6 +1825,389 @@ def assoc_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# 10. the study through the CLI
+
+# config/configGlobal.toml's SNP axis: 100,000 SNPs in 22 blocks, 21 of 4,546
+STUDY_BLOCKS = [4546] * 21 + [4534]
+STUDY_RESUME_TOL = 2e-3  # tests/test_e2e_gwas.py:222
+# the configuration's flags: the preset, the thresholds, the QC route and the caches
+STUDY_CONFIG = "config/configGlobalSkipPCA.toml"
+
+
+class _StdoutLines:
+    """Tees sys.stdout, keeping the lines written while installed (the
+    protocol prints its phase times there from the party threads)."""
+
+    def __init__(self):
+        self.real, self.buf, self._lock = sys.stdout, [], threading.Lock()
+
+    def write(self, s):
+        with self._lock:
+            self.buf.append(s)
+        return self.real.write(s)
+
+    def flush(self):
+        self.real.flush()
+
+    def __enter__(self):
+        sys.stdout = self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self.real
+
+    def lines(self):
+        return "".join(self.buf).splitlines()
+
+
+class _RssPeak:
+    """Samples this process's resident set every 0.2 s while installed."""
+
+    def __init__(self):
+        self.peak, self._stop = 0, threading.Event()
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while True:
+            self.peak = max(self.peak, self._rss())
+            if self._stop.wait(0.2):
+                return
+
+    def __enter__(self):
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(timeout=5)
+        self.peak = max(self.peak, self._rss())
+
+
+def _protocol_times(lines, pid: int) -> dict:
+    """qc / pca / assoc seconds from the protocol's own line of party pid."""
+    pat = re.compile(rf"\[pid {pid}\] GWAS protocol finished in ([\d.]+)s "
+                     r"\(qc ([\d.]+)s, pca ([\d.]+)s, assoc ([\d.]+)s\)")
+    for ln in lines:
+        m = pat.search(ln)
+        if m:
+            return dict(zip(("total_s", "qc_s", "pca_s", "assoc_s"), map(float, m.groups())))
+    raise AssertionError(f"no protocol line of party {pid}")
+
+
+def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, overrides: dict) -> tuple:
+    """The study's files from the seed under root: per data party the
+    genotype blocks geno.{i}.bin, blocksizes.txt, pheno.txt, cov.txt,
+    pos.txt and plink2's count file (phase 9's generators over the whole
+    SNP axis), and a global config of cfg_src's flags (with overrides)
+    and the paths in {pid} form.  Returns (the data, the config's path)."""
+    import tomllib
+
+    from sfgwas_tpu_torch.gwas import filestream as FS
+
+    m = sum(sizes)
+    data = _assoc_data(seed, n_loc, m, 1)
+    edges = np.cumsum([0] + list(sizes))
+    for pid in (1, 2):
+        g, pheno, cov = data[pid]
+        d = os.path.join(root, f"party{pid}")
+        os.makedirs(d)
+        for b in range(len(sizes)):
+            FS.write_geno_file(os.path.join(d, f"geno.{b}.bin"), g[:, edges[b] : edges[b + 1]])
+        with open(os.path.join(d, "blocksizes.txt"), "w") as f:
+            f.write("".join(f"{s}\n" for s in sizes))
+        np.savetxt(os.path.join(d, "pheno.txt"), pheno)
+        np.savetxt(os.path.join(d, "cov.txt"), cov)
+        np.savetxt(os.path.join(d, "pos.txt"), np.arange(m) * 1000, fmt="%d")
+        _count_file(g, os.path.join(d, "gcount.bin"))
+    with open(cfg_src, "rb") as f:
+        cfg = {k: v for k, v in tomllib.load(f).items() if k != "servers"}
+    cfg.update(overrides)
+    if (cfg["num_inds"], cfg["num_snps"]) != ([0, n_loc, n_loc], m):
+        raise AssertionError(f"{cfg_src}: {cfg['num_inds']} individuals, {cfg['num_snps']} SNPs")
+    p = os.path.join(root, "party{pid}")
+    cfg.update(
+        geno_file_format="blocks", geno_binary_file_prefix=os.path.join(p, "geno"),
+        geno_block_size_file=os.path.join(p, "blocksizes.txt"),
+        pheno_file=os.path.join(p, "pheno.txt"), covar_file=os.path.join(p, "cov.txt"),
+        snp_position_file=os.path.join(p, "pos.txt"),
+        geno_count_file=os.path.join(p, "gcount.bin"),
+        cache_dir=os.path.join(root, "cache"), output_dir=os.path.join(root, "out"),
+    )
+    path = os.path.join(root, "global.toml")
+    with open(path, "w") as f:
+        f.write("".join(f"{k} = {json.dumps(v)}\n" for k, v in cfg.items()))
+    return data, path
+
+
+def _study_hooks(torch, k2_inline: bool):
+    """Wrappers for one CLI run: each party's collective_init timed with its
+    bundle's keys_from_cache, each key-directory write timed, party 1's
+    host-clock spans (prof on, not synchronized), and with k2_inline every
+    K2 launch held against its plain version on the same inputs right
+    after it (bit equality; the first launch's inputs kept for the timed
+    record)."""
+    from sfgwas_tpu_torch.gwas import matmult as MM
+    from sfgwas_tpu_torch.gwas import protocol as GP
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.utils import prof
+
+    hooks = _Patches()
+    got = {"init": {}, "save_s": [], "spans": None,
+           "k2": {"launches": 0, "equal": 0, "check_s": 0.0, "first": None}}
+    lock = threading.Lock()
+
+    def init(real):
+        def wrapped(net, *a, **k):
+            t0 = time.time()
+            cps = real(net, *a, **k)
+            if cps.ctx.device.type == "cuda":
+                torch.cuda.synchronize()
+            with lock:
+                got["init"][net.pid] = {"s": time.time() - t0,
+                                        "keys_from_cache": cps.keys_from_cache}
+            return cps
+        return wrapped
+
+    def save(real):
+        def wrapped(*a):
+            t0 = time.time()
+            real(*a)
+            with lock:
+                got["save_s"].append(time.time() - t0)
+        return wrapped
+
+    def gwas(real):
+        def wrapped(self):
+            prof.reset()
+            try:
+                return real(self)
+            finally:
+                if self.pid == 1:
+                    got["spans"] = {k: v[0] for k, v in prof.totals().items()}
+        return wrapped
+
+    def mac(real):
+        def wrapped(ACC0, ACC1, R0, R1, polys, runs, q, mu, logn):
+            a0, a1 = ACC0.clone(), ACC1.clone()
+            out = real(ACC0, ACC1, R0, R1, polys, runs, q, mu=mu, logn=logn)
+            t0 = time.time()
+            MM.mac_dense_plain(a0, a1, R0, R1, polys, runs, q)
+            eq = bool(torch.equal(a0, ACC0) and torch.equal(a1, ACC1))
+            del a0, a1
+            with lock:
+                k2 = got["k2"]
+                k2["launches"] += 1
+                k2["equal"] += eq
+                k2["check_s"] += time.time() - t0
+                if k2["first"] is None:
+                    k2["first"] = (R0, R1, polys, runs, q, mu, logn, ACC0.shape[0])
+            return out
+        return wrapped
+
+    hooks.patch(PM, "collective_init", init)
+    hooks.patch(PM, "_save_key_dir", save)
+    hooks.patch(GP.ProtocolInfo, "gwas", gwas)
+    if k2_inline:
+        got["real_mac"] = hooks.patch(MM, "mac_dense", mac)
+    return hooks, got
+
+
+def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
+                platform=None, overrides=None):
+    """The study's two CLI runs (cli.main with --local-sim 3, and with
+    --platform only where given; platform=None is the card): the files and
+    config from the seed in a temporary directory (removed at the end),
+    run 1 fresh with every launch count set to 0 before it and read after
+    it (K2 held against its plain version at every launch, the other
+    kernels recorded at their wrappers), run 2 resumed from run 1's caches.
+    Party 1's assoc.txt of each run is copied to out_dir.  overrides
+    replaces config fields (a CPU rehearsal's preset and sizes).  Returns
+    (the data, each run's record)."""
+    import shutil
+    import tempfile
+
+    from sfgwas_tpu_torch import cli
+    from sfgwas_tpu_torch.ops import cuda_build
+    from sfgwas_tpu_torch.utils import prof
+
+    cuda = platform is None
+    tmp = tempfile.mkdtemp(prefix="sfgwas_study_")
+    runs: dict = {}
+    try:
+        t0 = time.time()
+        data, cfg = _study_files(tmp, seed, n_loc, sizes, cfg_src, overrides or {})
+        data_s = time.time() - t0
+        argv = ["--local-sim", "3", "--config-global", cfg]
+        if platform is not None:
+            argv += ["--platform", platform]
+        for name in ("fresh", "resumed"):
+            fresh = name == "fresh"
+            hooks, got = _study_hooks(torch, k2_inline=fresh)
+            rec = _collective_recorder(k3=True) if fresh else None
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            prof.ENABLED = True
+            cuda_build.reset_launch_counts()
+            try:
+                with _StdoutLines() as lines, _RssPeak() as rss:
+                    t0 = time.time()
+                    if cli.main(argv) != 0:
+                        raise AssertionError(f"the {name} run exited nonzero")
+                    if cuda:
+                        torch.cuda.synchronize()
+                    cmd_s = time.time() - t0
+                launches = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+            finally:
+                prof.ENABLED = False
+                hooks.restore()
+                if rec is not None:
+                    rec.restore()
+            out = {pid: np.loadtxt(os.path.join(tmp, "out", f"party{pid}", "assoc.txt"))
+                   for pid in (1, 2)}
+            keep = {pid: np.loadtxt(os.path.join(tmp, "cache", f"party{pid}", "gkeep.txt"))
+                    .astype(bool) for pid in (1, 2)}
+            shutil.copy(os.path.join(tmp, "out", "party1", "assoc.txt"),
+                        os.path.join(out_dir, f"assoc_{name}.txt"))
+            runs[name] = dict(
+                command_s=cmd_s, data_s=data_s,
+                protocol_party1=_protocol_times(lines.lines(), 1),
+                protocol_party2=_protocol_times(lines.lines(), 2),
+                init_s={p: v["s"] for p, v in got["init"].items()},
+                keys_from_cache={p: v["keys_from_cache"] for p, v in got["init"].items()},
+                key_dir_write_s=got["save_s"], spans_party1_host_clock=got["spans"],
+                peak_device_bytes=torch.cuda.max_memory_allocated() if cuda else None,
+                peak_host_rss_bytes=rss.peak, launches=launches, stats=out, keep=keep, rec=rec,
+                k2=got["k2"], real_mac=got.get("real_mac"),
+            )
+            _say(f"study {name}: {cmd_s:.1f} s of command, party 1 "
+                 f"{json.dumps(runs[name]['protocol_party1'])}, init "
+                 f"{json.dumps(runs[name]['init_s'])}, launches {json.dumps(launches)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return data, runs
+
+
+def study_check(data, runs, n_loc: int, sizes) -> dict:
+    """The revealed filters against the plaintext QC oracle, the fresh
+    run's statistics against the plaintext oracle, the resumed run's
+    against the fresh run's."""
+    fresh, resumed = runs["fresh"], runs["resumed"]
+    want_keep = assoc_qc_oracle(data, ASSOC_FILTER, n_loc)
+    want = assoc_stat_oracle(data, want_keep)
+    edges = np.cumsum([0] + list(sizes))
+    checks = {"snps": int(len(want_keep)), "kept": int(want_keep.sum()),
+              "blocks_kept": sum(1 for b in range(len(sizes))
+                                 if want_keep[edges[b] : edges[b + 1]].any())}
+    for pid in (1, 2):
+        got = fresh["stats"][pid]
+        ok_shape = got.shape == want.shape
+        checks[pid] = {
+            "finite": bool(np.isfinite(got).all()),
+            "max_abs_err": float(np.abs(got - want).max()) if ok_shape else None,
+            "corr": float(np.corrcoef(got, want)[0, 1]) if ok_shape else None,
+            "resumed_max_abs_diff": (float(np.abs(resumed["stats"][pid] - got).max())
+                                     if resumed["stats"][pid].shape == got.shape else None),
+        }
+    # the data parties' revealed filters (the dealer's file of the counts
+    # route holds no filter: it takes part in QC without the counts)
+    for name, r in runs.items():
+        checks[f"{name}_filter_equal"] = {p: bool(np.array_equal(r["keep"][p], want_keep))
+                                          for p in (1, 2)}
+    return checks
+
+
+def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
+    """Phase 10: the linear skip-PCA study through the CLI, cli.main with
+    --local-sim 3 and no --platform (the card), at the example's width and
+    scale: 2 x 1000 individuals, 5 covariates, 100,000 SNPs in 22 blocks,
+    config/configGlobalSkipPCA.toml's flags; run 1 fresh, run 2 resumed
+    from its caches (_study_runs).  Then K2 timed at its first launch and
+    every other kernel at each shape of run 1 that no earlier phase
+    checked.  Appends the kernels' records to `kernels`; returns the
+    phase's record."""
+    from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.gwas import matmult as MM
+
+    params = get_params("PN14QP438")
+    n_loc, sizes = 1000, STUDY_BLOCKS
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.time()
+    data, runs = _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, STUDY_CONFIG))
+    checks = study_check(data, runs, n_loc, sizes)
+    fresh, resumed = runs["fresh"], runs["resumed"]
+    k2 = fresh["k2"]
+    line = {
+        "individuals": [0, n_loc, n_loc], "covariates": 5, "snps": int(sum(sizes)),
+        "blocks": len(sizes), "block_snps": sizes[0], "config": STUDY_CONFIG,
+        "checks": checks, "data_s": fresh["data_s"],
+        "k2_inline_checks": {k: k2[k] for k in ("launches", "equal", "check_s")},
+        "host_cpu": f"{_cpu_model()}, {os.cpu_count()} logical cores",
+    }
+    for name, r in runs.items():
+        line[name] = {k: r[k] for k in (
+            "command_s", "protocol_party1", "protocol_party2", "init_s", "keys_from_cache",
+            "key_dir_write_s", "spans_party1_host_clock", "peak_device_bytes",
+            "peak_host_rss_bytes", "launches")}
+    _say(f"study phase: {json.dumps(line)}")
+    for name in runs:
+        for pid, eq in checks[f"{name}_filter_equal"].items():
+            if not eq:
+                raise AssertionError(f"{name} run, party {pid}: the revealed SNP filter differs "
+                                     "from the oracle")
+    for pid in (1, 2):
+        c = checks[pid]
+        if (not c["finite"] or c["max_abs_err"] is None or not c["max_abs_err"] <= ASSOC_STAT_TOL
+                or not c["corr"] > ASSOC_MIN_CORR):
+            raise AssertionError(f"party {pid}: statistics off: max abs err {c['max_abs_err']}, "
+                                 f"corr {c['corr']}, finite {c['finite']}")
+        if c["resumed_max_abs_diff"] is None or not c["resumed_max_abs_diff"] < STUDY_RESUME_TOL:
+            raise AssertionError(f"party {pid}: the resumed run is off the fresh one by "
+                                 f"{c['resumed_max_abs_diff']}")
+    missing = [k for k in ASSOC_PATH if fresh["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the study's fresh run: {missing}")
+    nblocks = checks["blocks_kept"]
+    if nblocks != len(sizes) or fresh["launches"]["mac_dense"] != 2 * nblocks:
+        raise AssertionError(f"K2 launched {fresh['launches']['mac_dense']} times for "
+                             f"{nblocks} blocks at 2 data parties")
+    if k2["launches"] != fresh["launches"]["mac_dense"] or k2["equal"] != k2["launches"]:
+        raise AssertionError(f"K2 equal to its plain version at {k2['equal']} of "
+                             f"{k2['launches']} launches")
+    if resumed["launches"]["mac_dense"]:
+        raise AssertionError(f"the resumed run launched K2 {resumed['launches']['mac_dense']} "
+                             "times")
+    if (any(fresh["keys_from_cache"].values()) or sorted(resumed["keys_from_cache"]) != [0, 1, 2]
+            or not all(resumed["keys_from_cache"].values())):
+        raise AssertionError(f"bundles from the key cache: fresh {fresh['keys_from_cache']}, "
+                             f"resumed {resumed['keys_from_cache']}")
+    if len(fresh["key_dir_write_s"]) != 3 or resumed["key_dir_write_s"]:
+        raise AssertionError(f"key directories written: fresh {fresh['key_dir_write_s']}, "
+                             f"resumed {resumed['key_dir_write_s']}")
+    rec = fresh.pop("rec")
+    del runs, resumed
+    # K2 timed at the first launch's inputs, then the other kernels at the
+    # fresh run's shapes that no earlier phase checked
+    R0, R1, polys, mruns, q, mu, logn, nacc = k2.pop("first")
+    _k2_check(torch, MM, kernels,
+              f"mac_dense (study) {[mruns.nruns, int(mruns.run_start_host[-1])]}",
+              fresh["real_mac"], R0, R1, polys, mruns, q, mu, logn, nacc)
+    kernels[-1].update(launches=fresh["launches"]["mac_dense"], path="study",
+                       launches_at_shape=1, inline_equal_launches=k2["equal"])
+    del R0, R1, polys, mruns
+    torch.cuda.empty_cache()
+    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+        torch, rec, fresh["launches"], params, kernels, "study", new_only=True)
+    del rec
+    line.update(k1_new_shapes_total_ms=k1_total, k1_shapes=k1_shapes, tree_shapes=tree_shapes,
+                phase_s=time.time() - t_phase)
+    return line
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2028,11 +2455,13 @@ def main() -> int:
     qr = qr_phase(torch, args.seed, out_dir, kernels)
     # ---- 9. the linear association phase
     assoc = assoc_phase(torch, args.seed, out_dir, kernels)
+    # ---- 10. the study through the CLI, fresh and resumed
+    study = study_phase(torch, args.seed, out_dir, kernels)
     # the shapes --tree times: K1's of one product, K4's of every path,
     # bs_mask's and K6's of the collective phases
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
               "crt_lift": []}
-    for phase in (mhe, ss, qr, assoc):
+    for phase in (mhe, ss, qr, assoc, study):
         for key, found in phase.pop("tree_shapes").items():
             shapes[key] += [s for s in found if s not in shapes[key]]
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
@@ -2069,6 +2498,7 @@ def main() -> int:
         "ss": ss,
         "qr": qr,
         "assoc": assoc,
+        "study": study,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

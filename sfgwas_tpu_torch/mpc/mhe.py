@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 import threading
 import weakref
 from dataclasses import dataclass, field
@@ -222,16 +223,46 @@ def collective_init(
     params_name: str,
     extra_shifts: Optional[List[int]] = None,
     shifts_override: Optional[List[int]] = None,
+    key_cache: Optional[str] = None,
     rot_key_nmod: Optional[int] = None,
     device=None,
 ) -> CryptoParams:
     """Interactive collective key generation.  shifts_override replaces the
     default rotation-key set; the rotation keys are sliced to rot_key_nmod
-    (default: the matmult band).  device=None means the CUDA card."""
+    (default: the matmult band).  device=None means the CUDA card.
+
+    key_cache names a per-party file: when its directory cache
+    (key_cache + ".d") or a legacy single .npz at key_cache exists, the
+    whole bundle (this party's shard and the collective keys) is restored
+    without the interactive protocol, and a fresh keygen writes the
+    directory.  An iteration aid for repeated runs on one machine, not for
+    production deployments.  The files are the JAX package's: uint32
+    residues, so either package restores the other's."""
     params = get_params(params_name)
     ctx = C.CkksContext(params, device)
     pid = net.pid
     log(f"pid{pid} collective init start ({params_name})")
+
+    kdir = key_cache + ".d" if key_cache else None
+    if kdir and os.path.exists(os.path.join(kdir, "meta.npz")):
+        cps = _load_key_dir(ctx, kdir)
+        log(f"pid{pid} keys restored from {kdir}")
+        return cps
+    if key_cache and os.path.exists(key_cache):
+        with np.load(key_cache) as z:
+            gelems = [int(g) for g in z["gelems"]]
+            cps = _restored(
+                ctx, z["sk"], z["pk0"], z["pk1"], z["rlk0"], z["rlk1"],
+                {g: C.KSwitchKey(ctx.to_dev(z[f"rk0_{g}"]), ctx.to_dev(z[f"rk1_{g}"]))
+                 for g in gelems},
+            )
+        log(f"pid{pid} keys restored from {key_cache}")
+        # migrate the legacy single-zip cache to the directory format and
+        # drop the zip
+        _save_key_dir(kdir, cps.sk, cps.pk, cps.rlk, cps.rot_keys)
+        os.remove(key_cache)
+        log(f"pid{pid} legacy key cache migrated to {kdir}")
+        return cps
 
     # the CRP stream is seeded from the globally shared PRG
     with net.rand.using(-1) as g:
@@ -267,7 +298,84 @@ def collective_init(
                 )
             )
     log(f"pid{pid} collective init done ({len(rot_keys)} rotation keys)")
+    if key_cache:
+        _save_key_dir(kdir, sk, pk, rlk, rot_keys)
+        log(f"pid{pid} keys cached to {kdir}")
     return CryptoParams(ctx, sk, pk, rlk, rot_keys, enc_rng)
+
+
+def _restored(ctx: C.CkksContext, sk, pk0, pk1, rlk0, rlk1, rot_keys) -> CryptoParams:
+    """A bundle restored from a key cache, with fresh local randomness."""
+    return CryptoParams(
+        ctx,
+        C.SecretKey(ctx.to_dev(sk)),
+        C.PublicKey(ctx.to_dev(pk0), ctx.to_dev(pk1)),
+        C.KSwitchKey(ctx.to_dev(rlk0), ctx.to_dev(rlk1)),
+        rot_keys,
+        np.random.default_rng(),
+        keys_from_cache=True,
+    )
+
+
+# bytes of a rotation-key stack copied to the device at a time
+_KEY_COPY_BYTES = 64 << 20
+
+
+def _stack_to_dev(ctx: C.CkksContext, path: str) -> torch.Tensor:
+    """A stacked .npy of uint32 residues -> one int32 tensor on ctx's
+    device, read through a memory map a few keys at a time (no second host
+    copy of the whole stack)."""
+    mm = np.load(path, mmap_mode="r")
+    if mm.dtype != np.uint32:
+        raise ValueError(f"{path}: residues must be uint32, found {mm.dtype}")
+    out = torch.empty(mm.shape, dtype=torch.int32, device=ctx.device)
+    step = max(1, _KEY_COPY_BYTES // mm[0].nbytes)
+    for i in range(0, len(mm), step):
+        out[i : i + step].copy_(rns.as_i32(mm[i : i + step]))
+    return out
+
+
+def _load_key_dir(ctx: C.CkksContext, kdir: str) -> CryptoParams:
+    """Restore a bundle from the directory key cache: meta.npz holds the
+    small keys and the Galois elements, rk0.npy / rk1.npy the rotation
+    keys stacked in sorted Galois order."""
+    with np.load(os.path.join(kdir, "meta.npz")) as z:
+        meta = {k: z[k] for k in ("sk", "pk0", "pk1", "rlk0", "rlk1", "gelems")}
+    rk0 = _stack_to_dev(ctx, os.path.join(kdir, "rk0.npy"))
+    rk1 = _stack_to_dev(ctx, os.path.join(kdir, "rk1.npy"))
+    gelems = [int(g) for g in meta.pop("gelems")]
+    if len(gelems) != len(rk0) or rk0.shape != rk1.shape:
+        raise ValueError(f"{kdir}: {len(gelems)} Galois elements for key stacks "
+                         f"{tuple(rk0.shape)}, {tuple(rk1.shape)}")
+    rot_keys = {g: C.KSwitchKey(rk0[i], rk1[i]) for i, g in enumerate(gelems)}
+    return _restored(ctx, rot_keys=rot_keys, **meta)
+
+
+def _save_key_dir(kdir: str, sk, pk, rlk, rot_keys):
+    """The directory key cache: the small keys in meta.npz, the rotation
+    keys as two stacked .npy files in sorted Galois order, each written key
+    by key into its file; meta.npz last, so a directory without it is
+    incomplete and ignored."""
+    os.makedirs(kdir, exist_ok=True)
+    order = sorted(rot_keys)
+    for name, part in (("rk0.npy", "d0"), ("rk1.npy", "d1")):
+        shape = (len(order),) + tuple(getattr(rot_keys[order[0]], part).shape)
+        mm = np.lib.format.open_memmap(
+            os.path.join(kdir, name), mode="w+", dtype=np.uint32, shape=shape
+        )
+        for i, g in enumerate(order):
+            mm[i] = rns.to_u32(getattr(rot_keys[g], part))
+        mm.flush()
+        del mm
+    np.savez(
+        os.path.join(kdir, "meta.npz"),
+        sk=rns.to_u32(sk.s),
+        pk0=rns.to_u32(pk.p0),
+        pk1=rns.to_u32(pk.p1),
+        rlk0=rns.to_u32(rlk.d0),
+        rlk1=rns.to_u32(rlk.d1),
+        gelems=np.asarray(order, np.int64),
+    )
 
 
 def _as_dev(ctx: C.CkksContext, x) -> torch.Tensor:

@@ -6,7 +6,10 @@ sfgwas_tpu/parallel/transport.py):
   tensor, the port's form of a uint32 residue array, goes as uint32);
 * LocalCluster / LocalTransport: an in-process mesh of queues, one per
   (party pair, channel), for parties that run as threads of one process.
-  Messages pass by reference (zero-copy): a tensor on the card stays there;
+  Messages pass by reference (zero-copy): a tensor on the card stays there.
+  A failing party closes the mesh, and every other party's next receive
+  raises ClusterClosed (the JAX package's mesh has no close: its parties
+  wait out their receive timeouts);
 * Network: typed blocking send/recv with per-peer byte and message counters,
   the pid-ordered symmetric exchange and the hub-rooted aggregation trees.
 
@@ -122,6 +125,13 @@ def decode(data: bytes):
 # The local transport
 
 
+class ClusterClosed(ConnectionError):
+    """A send or receive on a LocalCluster that was closed."""
+
+
+_CLOSED = object()  # the end-of-cluster marker in every queue
+
+
 class LocalCluster:
     """In-process mesh: queues per (src, dst, channel)."""
 
@@ -129,6 +139,7 @@ class LocalCluster:
         self.nparty = nparty
         self.nchannel = nchannel
         self.queues: Dict[tuple, queue.Queue] = {}
+        self.closed_reason: Optional[str] = None
         for s in range(nparty):
             for d in range(nparty):
                 for c in range(nchannel):
@@ -137,6 +148,29 @@ class LocalCluster:
 
     def transport(self, pid: int, channel: int = 0) -> "LocalTransport":
         return LocalTransport(self, pid, channel)
+
+    def close(self, reason: str):
+        """End the mesh: every later send, and every receive once the
+        messages already queued are read, raises ClusterClosed at once.  A
+        party that fails closes it, so the others do not wait out their
+        receive timeouts."""
+        if self.closed_reason is None:
+            self.closed_reason = reason
+        for q in self.queues.values():
+            q.put(_CLOSED)
+
+    def _put(self, key, obj):
+        if self.closed_reason is not None:
+            raise ClusterClosed(self.closed_reason)
+        self.queues[key].put(obj)
+
+    def _get(self, key, timeout: Optional[float]):
+        q = self.queues[key]
+        obj = q.get(timeout=timeout)
+        if obj is _CLOSED:
+            q.put(_CLOSED)  # for the next receive on this queue
+            raise ClusterClosed(self.closed_reason)
+        return obj
 
 
 def _to_host(obj):
@@ -192,16 +226,16 @@ class LocalTransport:
         self.channel = channel
 
     def send_obj(self, to: int, obj):
-        self.cluster.queues[(self.pid, to, self.channel)].put(obj)
+        self.cluster._put((self.pid, to, self.channel), obj)
 
     def recv_obj(self, frm: int, timeout: Optional[float] = 3600.0):
-        return self.cluster.queues[(frm, self.pid, self.channel)].get(timeout=timeout)
+        return self.cluster._get((frm, self.pid, self.channel), timeout)
 
     def send_bytes(self, to: int, data: bytes):
-        self.cluster.queues[(self.pid, to, self.channel)].put(data)
+        self.cluster._put((self.pid, to, self.channel), data)
 
     def recv_bytes(self, frm: int, timeout: Optional[float] = 3600.0) -> bytes:
-        return self.cluster.queues[(frm, self.pid, self.channel)].get(timeout=timeout)
+        return self.cluster._get((frm, self.pid, self.channel), timeout)
 
     def close(self):
         pass

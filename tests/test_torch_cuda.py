@@ -661,3 +661,53 @@ def test_assoc_on_card_matches_cpu(dev):
             assert (an, as_) == (bn, bs)
             np.testing.assert_array_equal(a0, b0)
             np.testing.assert_array_equal(a1, b1)
+
+
+def test_cli_on_card_matches_cpu(dev, tmp_path):
+    """The CLI's local-sim study (three parties, TEST8, linear skip-PCA, QC
+    from precomputed counts) with no --platform runs on the card: the same
+    SNP filter as the port's CPU run and statistics within 2e-3 of it (the
+    keys differ between the runs, so the decryption noise does)."""
+    import json
+
+    from sfgwas_tpu_torch import cli
+
+    nrows, m = [0, 24, 20], 50
+    rng = np.random.default_rng(99)
+    for pid in (1, 2):
+        d = tmp_path / f"party{pid}"
+        d.mkdir()
+        g = rng.binomial(2, rng.uniform(0.2, 0.5, size=m), size=(nrows[pid], m)).astype(np.int8)
+        g[rng.uniform(size=g.shape) < 0.02] = -1
+        g[:, :25].tofile(d / "geno.0.bin")
+        g[:, 25:].tofile(d / "geno.1.bin")
+        (d / "blocksizes.txt").write_text("25\n25\n")
+        np.savetxt(d / "pheno.txt", rng.normal(size=nrows[pid]) + 0.3 * np.maximum(g[:, 0], 0))
+        np.savetxt(d / "cov.txt", rng.normal(size=(nrows[pid], 2)))
+        raw = np.zeros((6, m), "<u4")
+        for k in range(3):
+            raw[k] = (g == k).sum(0)
+        raw[5] = (g < 0).sum(0)
+        raw.tofile(d / "gcount.bin")
+    p = str(tmp_path / "party{pid}")
+    fields = dict(num_inds=nrows, num_snps=m, num_covs=2, ckks_params="TEST8", gmiss=0.2,
+                  maf_lb=0.05, hwe_ub=1000.0, skip_pca=True, use_precomputed_geno_count=True,
+                  geno_binary_file_prefix=p + "/geno", geno_block_size_file=p + "/blocksizes.txt",
+                  pheno_file=p + "/pheno.txt", covar_file=p + "/cov.txt",
+                  geno_count_file=p + "/gcount.bin")
+    out = {}
+    for name, extra in (("cpu", ["--platform", "cpu"]), ("card", [])):
+        cfg = tmp_path / f"{name}.toml"
+        cfg.write_text("".join(f"{k} = {json.dumps(v)}\n" for k, v in dict(
+            fields, cache_dir=str(tmp_path / name / "cache"),
+            output_dir=str(tmp_path / name / "out")).items()))
+        cuda_build.reset_launch_counts()
+        assert cli.main(["--local-sim", "3", "--config-global", str(cfg)] + extra) == 0
+        launched = sum(v.launches for v in cuda_build.REGISTRY.values())
+        assert (launched > 0) == (name == "card")
+        out[name] = [(np.loadtxt(tmp_path / name / "out" / f"party{q}" / "assoc.txt"),
+                      np.loadtxt(tmp_path / name / "cache" / f"party{q}" / "gkeep.txt"))
+                     for q in (1, 2)]
+    for (cs, ck), (gs, gk) in zip(out["cpu"], out["card"]):
+        np.testing.assert_array_equal(gk, ck)
+        assert gs.shape == cs.shape and np.abs(gs - cs).max() < 2e-3

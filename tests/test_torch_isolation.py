@@ -49,7 +49,7 @@ def test_import_pulls_in_no_jax():
               "ops.ring", "ops.native_ring", "mpc.mpc", "mpc.boolean", "mpc.linalg",
               "mpc.ss_he", "utils.ddfloat", "crypto.basics", "gwas.qrfact", "gwas.assoc",
               "gwas.params", "gwas.filestream", "gwas.utilities", "gwas.qc", "gwas.pgen",
-              "gwas.matmult"):
+              "gwas.matmult", "gwas.protocol", "cli", "utils.config", "utils.watchdog"):
         assert "sfgwas_tpu_torch." + m in MODULES
 
 
