@@ -122,17 +122,18 @@ Phases (any failed check raises; the exit code is then nonzero):
     bit for bit against their plain versions at every shape the timed call
     launched them with, recorded at their wrappers, and timed;
 10. the linear skip-PCA study through the port's CLI at the example's
-    width and scale: cli.main(["--local-sim", "3", "--config-global", ...])
+    width: cli.main(["--local-sim", "3", "--config-global", ...])
     in this process with no --platform (the card), a config of
     config/configGlobalSkipPCA.toml's flags (PN14QP438, its thresholds, QC
     from the plink2 counts, use_cached_keys, use_cached_qc,
     use_cached_combined_q, skip_pca) and paths in {pid} form, on data from
     --seed in a temporary directory removed at the end: per data party
-    1000 individuals, 5 covariates and 100,000 SNPs in 22 blocks (21 x
-    4546 + 4534; phase 9's generators).  Run 1 is fresh, with every launch
-    count set to 0 before it and read after it: all six kernels launched,
-    K2 once a block at each data party (44) and held bit for bit against
-    its plain version on the same inputs right after each launch, the
+    1000 individuals, 5 covariates and the first 4 of the config's 22
+    blocks, 18,184 SNPs (phase 9's generators; phase 11 runs all 22).  Run
+    1 is fresh, with every launch count set to 0 before it and read after
+    it: all six kernels launched, K2 once a block at each data party and
+    held bit for bit against its plain version on the same inputs right
+    after each launch, the
     revealed filter equal to the QC oracle and the statistics within 2e-2
     of the plaintext oracle with corr > 0.999.  Run 2 resumes from run 1's
     caches: every party's bundle restored from its key directory, K2
@@ -143,7 +144,28 @@ Phases (any failed check raises; the exit code is then nonzero):
     host RSS are recorded; then K2 is timed at its first launch and K1,
     K3, K4, K5 and K6 are held against their plain versions at every shape
     of run 1 that no earlier phase checked, recorded at their wrappers;
-11. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+11. the same study at full depth (100,000 SNPs in 22 blocks, 21 x 4546 +
+    4534) as three party processes over loopback TCP: this script started
+    again once a party (--party-run, PID in the environment, after this
+    process built the six kernels, the ring engine and the transport
+    library), each running cli.main with the global config (a
+    [servers.partyN] map on 127.0.0.1 at free ports, one channel a pair)
+    and its own local config and no --platform, with phase 10's hooks and
+    cpu_count // 3 OpenMP threads.  Run 1 is fresh: every party's launch
+    counts set to 0 before and read after its run, all six kernels
+    launched, K2 22 times at each data party and held bit for bit against
+    its plain version right after each launch in the process that launched
+    it, the filter and the statistics held to the oracles; then, one party
+    at a time, K1 and K3-K6 against their plain versions at every shape of
+    the party's run that no earlier check held.  Run 2 resumes from run
+    1's caches (every bundle restored, K2 launched 0 times, the statistics
+    within 2e-3 of run 1's).  Recorded per run: the seconds from the first
+    start to the last run record and to the last exit, each party's
+    protocol line, keygen or restore seconds, bytes and messages per peer
+    (Network's counters over the whole run), peak device memory and host
+    RSS, and the card's peak used memory (nvidia-smi).  A party that fails
+    or runs out of time stops the others and fails the run;
+12. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
@@ -153,8 +175,10 @@ to chiprun_out/shapes.json, the profiler's tables to
 chiprun_out/mm_profile.txt, chiprun_out/bs_profile.txt,
 chiprun_out/ss_profile.txt, chiprun_out/qr_profile.txt and
 chiprun_out/assoc_profile.txt, the SASS listings to
-chiprun_out/sass_main_*.txt and party 1's assoc.txt of phase 10's runs to
-chiprun_out/assoc_fresh.txt and chiprun_out/assoc_resumed.txt.
+chiprun_out/sass_main_*.txt, party 1's assoc.txt of phase
+10's runs to chiprun_out/assoc_fresh.txt and chiprun_out/assoc_resumed.txt
+and of phase 11's to chiprun_out/assoc_tcp_{fresh,resumed}.txt, and the
+logs of phase 11's parties to chiprun_out/tcp_{fresh,resumed}_party*.log.
 
 --tree DIR --shapes FILE times only K1 (at one product's shapes), K4 (at
 every path's draws), bs_mask (at the MHE and SS phases' row sets) and K6
@@ -1830,6 +1854,8 @@ def assoc_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
 
 # config/configGlobal.toml's SNP axis: 100,000 SNPs in 22 blocks, 21 of 4,546
 STUDY_BLOCKS = [4546] * 21 + [4534]
+# phase 10's cut of that axis (phase 11 runs it whole): its first 4 blocks
+STUDY_LOCAL_BLOCKS = STUDY_BLOCKS[:4]
 STUDY_RESUME_TOL = 2e-3  # tests/test_e2e_gwas.py:222
 # the configuration's flags: the preset, the thresholds, the QC route and the caches
 STUDY_CONFIG = "config/configGlobalSkipPCA.toml"
@@ -1944,13 +1970,13 @@ def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, override
     return data, path
 
 
-def _study_hooks(torch, k2_inline: bool):
+def _study_hooks(torch, k2_inline: bool, keep_first: bool = True):
     """Wrappers for one CLI run: each party's collective_init timed with its
     bundle's keys_from_cache, each key-directory write timed, party 1's
     host-clock spans (prof on, not synchronized), and with k2_inline every
     K2 launch held against its plain version on the same inputs right
-    after it (bit equality; the first launch's inputs kept for the timed
-    record)."""
+    after it (bit equality; with keep_first, the first launch's inputs are
+    kept for the timed record)."""
     from sfgwas_tpu_torch.gwas import matmult as MM
     from sfgwas_tpu_torch.gwas import protocol as GP
     from sfgwas_tpu_torch.mpc import mhe as PM
@@ -2004,7 +2030,7 @@ def _study_hooks(torch, k2_inline: bool):
                 k2["launches"] += 1
                 k2["equal"] += eq
                 k2["check_s"] += time.time() - t0
-                if k2["first"] is None:
+                if keep_first and k2["first"] is None:
                     k2["first"] = (R0, R1, polys, runs, q, mu, logn, ACC0.shape[0])
             return out
         return wrapped
@@ -2124,27 +2150,31 @@ def study_check(data, runs, n_loc: int, sizes) -> dict:
 
 def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     """Phase 10: the linear skip-PCA study through the CLI, cli.main with
-    --local-sim 3 and no --platform (the card), at the example's width and
-    scale: 2 x 1000 individuals, 5 covariates, 100,000 SNPs in 22 blocks,
-    config/configGlobalSkipPCA.toml's flags; run 1 fresh, run 2 resumed
-    from its caches (_study_runs).  Then K2 timed at its first launch and
-    every other kernel at each shape of run 1 that no earlier phase
-    checked.  Appends the kernels' records to `kernels`; returns the
-    phase's record."""
+    --local-sim 3 and no --platform (the card), at the example's width: 2 x
+    1000 individuals, 5 covariates, config/configGlobalSkipPCA.toml's flags,
+    and the first 4 of its 22 SNP blocks (18,184 SNPs; phase 11 runs all
+    22); run 1 fresh, run 2 resumed from its caches (_study_runs).  Then K2
+    timed at its first launch and every other kernel at each shape of run 1
+    that no earlier phase checked.  Appends the kernels' records to
+    `kernels`; returns the phase's record."""
     from sfgwas_tpu_torch.crypto.params import get_params
     from sfgwas_tpu_torch.gwas import matmult as MM
 
     params = get_params("PN14QP438")
-    n_loc, sizes = 1000, STUDY_BLOCKS
+    n_loc, sizes = 1000, STUDY_LOCAL_BLOCKS
     root = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.time()
-    data, runs = _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, STUDY_CONFIG))
+    data, runs = _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, STUDY_CONFIG),
+                             overrides={"num_snps": int(sum(sizes))})
     checks = study_check(data, runs, n_loc, sizes)
     fresh, resumed = runs["fresh"], runs["resumed"]
     k2 = fresh["k2"]
     line = {
         "individuals": [0, n_loc, n_loc], "covariates": 5, "snps": int(sum(sizes)),
         "blocks": len(sizes), "block_snps": sizes[0], "config": STUDY_CONFIG,
+        "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
+                    "blocks": [len(STUDY_BLOCKS), len(sizes)],
+                    "why": "time: phase 11 runs the whole SNP axis through the TCP mesh"},
         "checks": checks, "data_s": fresh["data_s"],
         "k2_inline_checks": {k: k2[k] for k in ("launches", "equal", "check_s")},
         "host_cpu": f"{_cpu_model()}, {os.cpu_count()} logical cores",
@@ -2209,18 +2239,438 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# 11. the study as three party processes over loopback TCP
+
+TCP_RUN_TIMEOUT_S = {"fresh": 900, "resumed": 400}  # first start to the last run record
+TCP_CHECK_TIMEOUT_S = 600  # one party's kernel checks
+# each party's OpenMP threads (torch's CPU pool, the native ring engine):
+# the parties share one host
+TCP_PARTY_THREADS = max(1, (os.cpu_count() or 3) // 3)
+# the local config's fields: a party's own files and directories
+TCP_LOCAL_FIELDS = ("geno_binary_file_prefix", "geno_block_size_file", "pheno_file",
+                    "covar_file", "snp_position_file", "geno_count_file")
+
+
+def free_ports(n: int) -> list:
+    """n distinct ports free on 127.0.0.1 right now."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            socks.append(s)
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def tcp_configs(root: str, cfg: str, tag: str) -> list:
+    """From the study's global config (paths in {pid} form): a global config
+    with a [servers.partyN] map on 127.0.0.1 at free ports, and one local
+    config a party with its own paths (the dealer takes party 1's) and its
+    cache and output directories.  Returns [(global, local)] by pid.  The
+    port's TCP tests write their configs with it too."""
+    import tomllib
+
+    with open(cfg, "rb") as f:
+        fields = tomllib.load(f)
+    p01, p02, p12 = free_ports(3)
+    g = os.path.join(root, f"global_{tag}.toml")
+    with open(cfg) as f, open(g, "w") as out:
+        out.write(f.read())
+        out.write('binding_ipaddr = "127.0.0.1"\n'
+                  f'[servers.party0]\nipaddr = "127.0.0.1"\n[servers.party0.ports]\n'
+                  f'party1 = "{p01}"\nparty2 = "{p02}"\n'
+                  f'[servers.party1]\nipaddr = "127.0.0.1"\n[servers.party1.ports]\n'
+                  f'party2 = "{p12}"\n[servers.party2]\nipaddr = "127.0.0.1"\n')
+    cfgs = []
+    for pid in range(3):
+        loc = {k: fields[k].replace("{pid}", str(pid or 1)) for k in TCP_LOCAL_FIELDS}
+        loc["cache_dir"] = os.path.join(fields["cache_dir"], f"party{pid}")
+        loc["output_dir"] = os.path.join(fields["output_dir"], f"party{pid}")
+        path = os.path.join(root, f"local_{tag}_{pid}.toml")
+        with open(path, "w") as f:
+            f.write("".join(f"{k} = {json.dumps(v)}\n" for k, v in loc.items()))
+        cfgs.append((g, path))
+    return cfgs
+
+
+def _net_totals(hooks: "_Patches") -> dict:
+    """Network's per-peer counters summed over a party's whole run: each
+    reset_log (one at each protocol phase) first adds the counters it
+    clears; totals(net) adds the counters still on the party's Network."""
+    from sfgwas_tpu_torch.parallel import transport as PT
+
+    keys = ("sent_bytes", "sent_msgs", "recv_bytes", "recv_msgs")
+    tot = {"nets": [], "sum": collections.defaultdict(lambda: dict.fromkeys(keys, 0))}
+
+    def add(net):
+        for k in keys:
+            for peer, v in getattr(net, k).items():
+                if peer != net.pid:
+                    tot["sum"][peer][k] += v
+
+    def reset(real):
+        def wrapped(self):
+            if hasattr(self, "sent_bytes"):
+                add(self)
+            else:
+                tot["nets"].append(self)
+            real(self)
+        return wrapped
+
+    hooks.patch(PT.Network, "reset_log", reset)
+
+    def totals() -> dict:
+        for net in tot["nets"]:
+            add(net)
+        return {str(peer): v for peer, v in sorted(tot["sum"].items())}
+
+    return totals
+
+
+def _smi_memory_peak(stop: threading.Event, out: dict):
+    """Samples the card's used memory (nvidia-smi, MiB) every 0.5 s until
+    stop is set; the peak goes to out["mib"]."""
+    while not stop.wait(0.5):
+        try:
+            v = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=30, check=True,
+            ).stdout.strip().splitlines()[0]
+        except (OSError, subprocess.SubprocessError, IndexError):
+            continue
+        out["mib"] = max(out.get("mib", 0), float(v))
+
+
+def party_main(torch, args) -> int:
+    """One party process of phase 11 (chip_smoke.py --party-run NAME
+    --party-dir DIR, with PID in the environment): phase 10's hooks
+    installed, then cli.main with the party's configs and no --platform
+    (the card), with every launch count set to 0 before it and read after
+    it.  Writes DIR/run{pid}.json.  After a fresh run it waits for
+    DIR/go{pid}.json (the shapes earlier checks held), holds K1 and K3-K6
+    against their plain versions at every shape of its run not among them,
+    and writes DIR/checks{pid}.json.  --party-platform cpu runs the party
+    on the CPU (a rehearsal: no kernel checks)."""
+    import ast
+
+    from sfgwas_tpu_torch import cli
+    from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.ops import cuda_build
+    from sfgwas_tpu_torch.utils import prof
+
+    pid = int(os.environ["PID"])
+    d, fresh = args.party_dir, args.party_run == "fresh"
+    cuda = args.party_platform is None
+    argv = ["--config-global", args.config_global, "--config-local", args.config_local]
+    if cuda:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device available", file=sys.stderr)
+            return 2
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    else:
+        argv += ["--platform", args.party_platform]
+    hooks, got = _study_hooks(torch, k2_inline=fresh, keep_first=False)
+    totals = _net_totals(hooks)
+    rec = _collective_recorder(k3=True) if fresh and cuda else None
+    prof.ENABLED = True
+    cuda_build.reset_launch_counts()
+    try:
+        with _StdoutLines() as lines, _RssPeak() as rss:
+            t0 = time.time()
+            cli.main(argv)
+            if cuda:
+                torch.cuda.synchronize()
+            cmd_s = time.time() - t0
+        launches = dict.fromkeys(ASSOC_PATH, 0)
+        launches.update({k: v.launches for k, v in cuda_build.REGISTRY.items()})
+    finally:
+        prof.ENABLED = False
+        hooks.restore()
+        if rec is not None:
+            rec.restore()
+    k2 = got["k2"]
+    k2.pop("first")
+    run = dict(
+        pid=pid, command_s=cmd_s, protocol=_protocol_times(lines.lines(), pid),
+        init_s=got["init"][pid]["s"], keys_from_cache=got["init"][pid]["keys_from_cache"],
+        key_dir_write_s=got["save_s"], spans_party1_host_clock=got["spans"],
+        peak_device_bytes=torch.cuda.max_memory_allocated() if cuda else None,
+        peak_device_reserved_bytes=torch.cuda.max_memory_reserved() if cuda else None,
+        peak_host_rss_bytes=rss.peak, launches=launches, k2=k2, net=totals(),
+        omp_threads=os.environ.get("OMP_NUM_THREADS"), finished_at=time.time(),
+    )
+    with open(os.path.join(d, f"run{pid}.json"), "w") as f:
+        json.dump(run, f)
+    _say(f"party {pid} {args.party_run}: {json.dumps(run)}")
+    if not (fresh and cuda):
+        return 0
+    del got
+    torch.cuda.empty_cache()
+    go = os.path.join(d, f"go{pid}.json")
+    deadline = time.time() + TCP_CHECK_TIMEOUT_S
+    while not os.path.exists(go):
+        if time.time() > deadline:
+            raise AssertionError(f"party {pid}: no go for the kernel checks")
+        time.sleep(0.2)
+    with open(go) as f:
+        CHECKED.update(ast.literal_eval(f.read()))
+    kernels: list = []
+    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+        torch, rec, launches, get_params("PN14QP438"), kernels, f"tcp study party {pid}",
+        new_only=True)
+    with open(os.path.join(d, f"checks{pid}.json"), "w") as f:
+        json.dump({"kernels": kernels, "checked": _checked_repr(),
+                   "k1_shapes": k1_shapes, "k1_total_ms": k1_total,
+                   "tree_shapes": tree_shapes}, f)
+    return 0
+
+
+def _checked_repr() -> str:
+    """CHECKED as a Python literal (ast.literal_eval reads it back): its
+    keys with plain ints and bools in place of numpy's."""
+    def plain(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(plain(v) for v in x)
+        if isinstance(x, (bool, np.bool_)):
+            return bool(x)
+        return x if isinstance(x, str) else int(x)
+
+    return repr(sorted((plain(k) for k in CHECKED), key=repr))
+
+
+def _tcp_run(name: str, d: str, cfgs: list, kernels: list, out_dir: str,
+             platform=None) -> dict:
+    """One run of phase 11: the three party processes started together
+    (OMP_NUM_THREADS=TCP_PARTY_THREADS each), the parent waiting for every
+    run record (a process that fails or a timeout kills the others and
+    raises), then, after a fresh run on the card, each party's kernel checks
+    one party at a time.  Each party's log is copied to
+    out_dir/tcp_<name>_party<pid>.log.  Returns the run's record."""
+    import ast
+    import shutil
+
+    here = os.path.abspath(__file__)
+    env = dict(os.environ, OMP_NUM_THREADS=str(TCP_PARTY_THREADS))
+    extra = [] if platform is None else ["--party-platform", platform]
+    procs, logs = [], []
+    stop, smi = threading.Event(), {}
+    sampler = threading.Thread(target=_smi_memory_peak, args=(stop, smi), daemon=True)
+    sampler.start()
+    t0 = time.time()
+
+    def fail(why: str):
+        for pid, p in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+        for pid, path in enumerate(logs):
+            with open(path) as f:
+                print(f"---- party {pid} ({name}), the end of its log:\n{f.read()[-6000:]}",
+                      file=sys.stderr, flush=True)
+        raise AssertionError(f"tcp study {name}: {why}")
+
+    try:
+        for pid, (g, loc) in enumerate(cfgs):
+            path = os.path.join(d, f"{name}_party{pid}.log")
+            logs.append(path)
+            with open(path, "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, here, "--party-run", name, "--party-dir", d,
+                     "--config-global", g, "--config-local", loc] + extra,
+                    env=dict(env, PID=str(pid)), stdout=log, stderr=subprocess.STDOUT))
+        records = [os.path.join(d, f"run{pid}.json") for pid in range(3)]
+        while not all(os.path.exists(r) for r in records):
+            bad = [(pid, p.returncode) for pid, p in enumerate(procs)
+                   if p.poll() is not None and (p.returncode != 0 or not os.path.exists(
+                       records[pid]))]
+            if bad:
+                fail(f"party processes exited before their run record: {bad}")
+            if time.time() - t0 > TCP_RUN_TIMEOUT_S[name]:
+                fail(f"no run record from every party within {TCP_RUN_TIMEOUT_S[name]} s")
+            time.sleep(0.2)
+        runs = []
+        for r in records:
+            with open(r) as f:
+                runs.append(json.load(f))
+        wall_s = max(r["finished_at"] for r in runs) - t0
+        stop.set()
+        if name == "fresh" and platform is None:
+            for pid, p in enumerate(procs):
+                with open(os.path.join(d, f"go{pid}.json"), "w") as f:
+                    f.write(_checked_repr())
+                try:
+                    p.wait(timeout=TCP_CHECK_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    fail(f"party {pid}'s kernel checks took over {TCP_CHECK_TIMEOUT_S} s")
+                if p.returncode != 0:
+                    fail(f"party {pid}'s kernel checks exited {p.returncode}")
+                with open(os.path.join(d, f"checks{pid}.json")) as f:
+                    chk = json.load(f)
+                CHECKED.update(ast.literal_eval(chk["checked"]))
+                kernels.extend(chk["kernels"])
+                runs[pid]["k1_new_shapes_total_ms"] = chk["k1_total_ms"]
+                runs[pid]["tree_shapes"] = chk["tree_shapes"]
+        for pid, p in enumerate(procs):
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                fail(f"party {pid} did not exit after its run")
+            if p.returncode != 0:
+                fail(f"party {pid} exited {p.returncode}")
+        last_exit_s = time.time() - t0
+    finally:
+        stop.set()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        sampler.join(timeout=60)
+        for pid, path in enumerate(logs):
+            shutil.copy(path, os.path.join(out_dir, f"tcp_{name}_party{pid}.log"))
+    for r in records:
+        os.remove(r)
+    return {"wall_s": wall_s, "last_exit_s": last_exit_s, "card_peak_used_mib": smi.get("mib"),
+            "parties": runs}
+
+
+def tcp_study_phase(torch, seed: int, out_dir: str, kernels: list, n_loc: int = 1000,
+                    sizes=STUDY_BLOCKS, platform=None, overrides=None) -> dict:
+    """Phase 11: the study of phase 10 at full depth (2 x 1000 individuals,
+    5 covariates, 100,000 SNPs in 22 blocks, configGlobalSkipPCA.toml's
+    flags) as three party processes over loopback TCP, each `cli.main` with
+    its PID and its local config and no --platform (the card), fresh, then
+    resumed from the caches.  The six kernels, the ring engine and the
+    transport library are built here first; the parties load them.  Appends
+    the kernels' records of the shapes no earlier phase checked; returns the
+    phase's record.
+    platform="cpu" with a small n_loc, sizes and a preset in overrides
+    rehearses the phase on the CPU (no kernels, no checks of them)."""
+    import shutil
+    import tempfile
+
+    from sfgwas_tpu_torch.ops import cuda_build, native_ring
+    from sfgwas_tpu_torch.parallel import native_transport
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.time()
+    t0 = time.time()
+    if platform is None:
+        cuda_build.build()
+    native_ring.lib()
+    native_transport.lib()
+    build_s = time.time() - t0
+    if platform is None:
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="sfgwas_tcp_")
+    runs: dict = {}
+    try:
+        t0 = time.time()
+        data, cfg = _study_files(tmp, seed, n_loc, sizes, os.path.join(root, STUDY_CONFIG),
+                                 overrides or {})
+        data_s = time.time() - t0
+        for name in ("fresh", "resumed"):
+            run = _tcp_run(name, tmp, tcp_configs(tmp, cfg, name), kernels, out_dir, platform)
+            run["stats"] = {pid: np.loadtxt(os.path.join(tmp, "out", f"party{pid}", "assoc.txt"))
+                            for pid in (1, 2)}
+            run["keep"] = {pid: np.loadtxt(os.path.join(tmp, "cache", f"party{pid}",
+                                                        "gkeep.txt")).astype(bool)
+                           for pid in (1, 2)}
+            shutil.copy(os.path.join(tmp, "out", "party1", "assoc.txt"),
+                        os.path.join(out_dir, f"assoc_tcp_{name}.txt"))
+            runs[name] = run
+            p = run["parties"]
+            _say(f"tcp study {name}: {run['wall_s']:.1f} s from the first start to the last "
+                 f"run record; protocol {json.dumps([r['protocol'] for r in p])}; init "
+                 f"{[round(r['init_s'], 2) for r in p]} s; launches "
+                 f"{json.dumps([r['launches'] for r in p])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    checks = study_check(data, runs, n_loc, sizes)
+    fresh, resumed = runs["fresh"], runs["resumed"]
+    total = {k: sum(r["launches"].get(k, 0) for r in fresh["parties"])
+             for k in sorted({k for r in fresh["parties"] for k in r["launches"]})}
+    line = {
+        "individuals": [0, n_loc, n_loc], "covariates": 5, "snps": int(sum(sizes)),
+        "blocks": len(sizes), "config": STUDY_CONFIG, "transport": "NativeTCPTransport",
+        "mpc_num_threads": 1, "omp_threads_per_party": TCP_PARTY_THREADS, "build_s": build_s,
+        "data_s": data_s, "checks": checks, "fresh_launches_all_parties": total,
+        "host_cpu": f"{_cpu_model()}, {os.cpu_count()} logical cores",
+    }
+    for name, r in runs.items():
+        line[name] = {k: r[k] for k in ("wall_s", "last_exit_s", "card_peak_used_mib")}
+        line[name]["parties"] = [{k: v for k, v in p.items() if k not in ("tree_shapes",)}
+                                 for p in r["parties"]]
+    _say(f"tcp study phase: {json.dumps(line)}")
+    for name in runs:
+        for pid, eq in checks[f"{name}_filter_equal"].items():
+            if not eq:
+                raise AssertionError(f"tcp {name} run, party {pid}: the revealed SNP filter "
+                                     "differs from the oracle")
+    for pid in (1, 2):
+        c = checks[pid]
+        if (not c["finite"] or c["max_abs_err"] is None or not c["max_abs_err"] <= ASSOC_STAT_TOL
+                or not c["corr"] > ASSOC_MIN_CORR):
+            raise AssertionError(f"tcp party {pid}: statistics off: max abs err "
+                                 f"{c['max_abs_err']}, corr {c['corr']}, finite {c['finite']}")
+        if c["resumed_max_abs_diff"] is None or not c["resumed_max_abs_diff"] < STUDY_RESUME_TOL:
+            raise AssertionError(f"tcp party {pid}: the resumed run is off the fresh one by "
+                                 f"{c['resumed_max_abs_diff']}")
+    cuda = platform is None  # a CPU rehearsal launches no kernel
+    missing = [k for k in ASSOC_PATH if not total.get(k)]
+    if cuda and missing:
+        raise AssertionError(f"kernels not launched on the tcp study's fresh run: {missing}")
+    for pid, r in enumerate(fresh["parties"]):
+        want = checks["blocks_kept"] if pid else 0
+        k2, launched = r["k2"], r["launches"].get("mac_dense", 0)
+        if (cuda and launched != want) or k2["launches"] != want or k2["equal"] != want:
+            raise AssertionError(f"tcp party {pid}: K2 launched {launched} times, "
+                                 f"{k2['equal']} of {k2['launches']} calls equal to its plain "
+                                 f"version; want {want}")
+    for pid, r in enumerate(resumed["parties"]):
+        if r["launches"].get("mac_dense", 0):
+            raise AssertionError(f"tcp party {pid}: the resumed run launched K2 "
+                                 f"{r['launches']['mac_dense']} times")
+    if (any(r["keys_from_cache"] for r in fresh["parties"])
+            or not all(r["keys_from_cache"] for r in resumed["parties"])):
+        raise AssertionError("tcp study: bundles from the key cache: fresh "
+                             f"{[r['keys_from_cache'] for r in fresh['parties']]}, resumed "
+                             f"{[r['keys_from_cache'] for r in resumed['parties']]}")
+    tree_shapes: dict = {}
+    for r in fresh["parties"]:
+        for key, found in r.pop("tree_shapes", {}).items():
+            tree_shapes.setdefault(key, []).extend(s for s in found
+                                                   if s not in tree_shapes.get(key, []))
+    line.update(tree_shapes=tree_shapes, phase_s=time.time() - t_phase)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tree", metavar="DIR",
                     help="time only K1, K4, bs_mask and K6 of the package under DIR")
     ap.add_argument("--shapes", metavar="FILE", help="their shapes (a full run's shapes.json)")
+    # phase 11 starts each party as this script with these (PID in the environment)
+    ap.add_argument("--party-run", choices=("fresh", "resumed"), help=argparse.SUPPRESS)
+    ap.add_argument("--party-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--config-global", help=argparse.SUPPRESS)
+    ap.add_argument("--config-local", help=argparse.SUPPRESS)
+    ap.add_argument("--party-platform", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if bool(args.tree) != bool(args.shapes):
         ap.error("--tree and --shapes go together")
 
     import torch
 
+    if args.party_run:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return party_main(torch, args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2457,11 +2907,13 @@ def main() -> int:
     assoc = assoc_phase(torch, args.seed, out_dir, kernels)
     # ---- 10. the study through the CLI, fresh and resumed
     study = study_phase(torch, args.seed, out_dir, kernels)
+    # ---- 11. the study as three party processes over loopback TCP
+    tcp_study = tcp_study_phase(torch, args.seed, out_dir, kernels)
     # the shapes --tree times: K1's of one product, K4's of every path,
     # bs_mask's and K6's of the collective phases
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
               "crt_lift": []}
-    for phase in (mhe, ss, qr, assoc, study):
+    for phase in (mhe, ss, qr, assoc, study, tcp_study):
         for key, found in phase.pop("tree_shapes").items():
             shapes[key] += [s for s in found if s not in shapes[key]]
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
@@ -2499,6 +2951,7 @@ def main() -> int:
         "qr": qr,
         "assoc": assoc,
         "study": study,
+        "tcp_study": tcp_study,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -1,22 +1,31 @@
 """CLI entry point (counterpart of sfgwas_tpu/cli.py; the Go sfgwas's
 sfgwas.go:17-74).
 
-Usage, all parties in one process over the in-process mesh:
+Usage, one process per party over the TCP mesh of the global config's
+[servers.partyN] sections (run_example.sh's layout; the PID environment
+variable selects the party):
+    PID=1 python -m sfgwas_tpu_torch.cli \\
+        --config-global config/configGlobalSkipPCA.toml \\
+        --config-local config/configLocal.Party1.toml
+
+or all parties in one process over the in-process mesh:
     python -m sfgwas_tpu_torch.cli --local-sim 3 \\
         --config-global config/configGlobalSkipPCA.toml \\
         --config-local config/configLocalSim.toml
 
-The two-level TOML config matches the Go sfgwas's schema; with --local-sim
-every party reads the same files, and the path fields may hold a literal
-{pid} that each party replaces with its id (the dealer, 0, with 1).  The
-parties run on the CUDA card unless --platform names another torch device
-(cpu); with no card and no --platform the CLI raises.  One process per
-party (the PID environment variable selects the party) needs the TCP
-transport, which is not ported yet (ROADMAP A8).
+The two-level TOML config matches the Go sfgwas's schema.  A TCP party reads
+its own local config; with --local-sim every party reads the same files, and
+the path fields may hold a literal {pid} that each party replaces with its
+id (the dealer, 0, with 1).  The parties run on the CUDA card unless
+--platform names another torch device (cpu); with no card and no
+--platform the CLI raises.
 
-Unlike the JAX package's CLI, a party that raises fails the run: it closes
-the in-process mesh, so the other parties' receives raise at once, and
-main re-raises its exception.
+Unlike the JAX package's CLI, a party that raises fails the run.  In one
+process it closes the in-process mesh, so the other parties' receives raise
+at once, and main re-raises its exception.  A TCP party closes its
+connections and main re-raises (the process exits nonzero); each peer's next
+receive from it raises ConnectionError, so every party's process fails in
+turn and none waits for a message that will not come.
 """
 
 from __future__ import annotations
@@ -99,6 +108,26 @@ def _local_sim(args, device) -> None:
         raise err
 
 
+def _tcp_party(args, device) -> None:
+    """This process's party (the PID environment variable) over the TCP
+    mesh; a failure closes its connections before it is raised."""
+    from .gwas.protocol import ProtocolInfo
+    from .utils.log import log
+
+    pid = int(os.environ.get("PID", "0"))
+    prot = None
+    try:
+        prot = ProtocolInfo(load_config(args.config_global, args.config_local), pid,
+                            device=device)
+        prot.gwas()
+        prot.sync_and_terminate()
+    except BaseException:
+        log(f"party {pid} failed; its connections are closed")
+        if prot is not None:
+            prot.net.close()
+        raise
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m sfgwas_tpu_torch.cli")
     ap.add_argument("--config-global", required=True)
@@ -126,13 +155,7 @@ def main(argv=None):
             _local_sim(args, device)
             return 0
 
-        from .gwas.protocol import ProtocolInfo
-
-        pid = int(os.environ.get("PID", "0"))
-        prot = ProtocolInfo(load_config(args.config_global, args.config_local), pid,
-                            device=device)
-        prot.gwas()
-        prot.sync_and_terminate()
+        _tcp_party(args, device)
         return 0
     finally:
         watchdog.stop()

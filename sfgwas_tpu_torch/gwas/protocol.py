@@ -3,11 +3,11 @@ QC -> (PCA) -> association (counterpart of sfgwas_tpu/gwas/protocol.py;
 the Go sfgwas's gwas/gwas.go: ProtocolInfo, InitializeGWASProtocol,
 Phase1/2/3, SyncAndTerminate).
 
-Ported: the in-process transport, both genotype input formats, the three QC
-routes (skip, cached filter, precomputed counts or the scan), phase 2 with
-skip_pca and the linear phase 3.  Each part not ported yet raises
-NotImplementedError naming the ROADMAP item that brings it: the TCP mesh
-(A8), PCA (A9), logistic association (A10) and within-party sharding (A11).
+Ported: the in-process transport and the TCP mesh, both genotype input
+formats, the three QC routes (skip, cached filter, precomputed counts or the
+scan), phase 2 with skip_pca and the linear phase 3.  Each part not ported
+yet raises NotImplementedError naming the ROADMAP item that brings it: PCA
+(A9), logistic association (A10) and within-party sharding (A11).
 """
 
 from __future__ import annotations
@@ -40,9 +40,14 @@ class ProtocolInfo:
         nparty = config.nparty
 
         if transport is None:
-            raise NotImplementedError(
-                "the TCP transport is not ported yet (ROADMAP A8); run the parties in one "
-                "process with --local-sim"
+            from ..parallel.transport import make_tcp_transport
+
+            # one connection per (pair, MPC thread), as the Go sfgwas opens
+            # them; the striped transport moves each large frame over all of
+            # a pair's connections at once
+            transport = make_tcp_transport(
+                pid, nparty, config.servers, max(1, config.mpc_num_threads),
+                config.binding_ipaddr,
             )
         rand = Random(pid, nparty, config.shared_keys_path or None)
         self.net = Network(transport, pid, nparty, config.hub_party_id, rand)

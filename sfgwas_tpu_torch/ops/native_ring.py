@@ -45,7 +45,8 @@ _lock = threading.Lock()  # party threads reach the first use together
 
 
 class NativeBuildError(RuntimeError):
-    """The native ring engine could not be built or loaded."""
+    """A native library (the ring engine, the TCP transport) could not be
+    built or loaded."""
 
 
 def ring_id(modulus: int, kind: str):
@@ -53,18 +54,20 @@ def ring_id(modulus: int, kind: str):
     return _RING_IDS.get((modulus, kind))
 
 
-def target(src: Path = None) -> Path:
-    """The library path for a source (default SRC):
-    _build/libsfgring-<hash>.so."""
+def target(src: Path = None, prefix: str = "libsfgring", flags=None) -> Path:
+    """The library path for a source (default SRC) built with `flags`
+    (default CXX_FLAGS): _build/<prefix>-<hash of both>.so."""
     h = hashlib.sha256(Path(src or SRC).read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libsfgring-{h.hexdigest()[:12]}.so"
+    h.update(" ".join(CXX_FLAGS if flags is None else flags).encode())
+    return BUILD_DIR / f"{prefix}-{h.hexdigest()[:12]}.so"
 
 
-def build(src: Path = None, out: Path = None) -> Path:
-    """Compile `src` (default SRC) into `out` (default: target(src)) unless
-    it exists; raises NativeBuildError with g++'s output on a failure."""
+def build(src: Path = None, out: Path = None, flags=None) -> Path:
+    """Compile `src` (default SRC) with `flags` (default CXX_FLAGS) into
+    `out` (default: target(src)) unless it exists; raises NativeBuildError
+    with g++'s output on a failure."""
     src = Path(src or SRC)
+    flags = CXX_FLAGS if flags is None else flags
     out = Path(out) if out is not None else target(src)
     if out.exists():
         return out
@@ -72,7 +75,7 @@ def build(src: Path = None, out: Path = None) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        p = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, str(src)], capture_output=True,
+        p = subprocess.run(["g++", *flags, "-o", tmp, str(src)], capture_output=True,
                            text=True)
     except OSError as e:
         os.unlink(tmp)

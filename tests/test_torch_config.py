@@ -107,9 +107,24 @@ def _cfg(tmp_path, **fields):
                                **fields)
 
 
-def test_tcp_transport_names_a8(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8"):
-        PP.ProtocolInfo(_cfg(tmp_path), 0, mpc_only=True)
+def test_tcp_transport_names_a8(tmp_path, monkeypatch):
+    """With no transport given, the protocol builds the TCP mesh (A8) from
+    the config, as the JAX package's does: the servers map, one channel a
+    pair per MPC thread, the binding address."""
+    from sfgwas_tpu_torch.parallel import transport as PT
+
+    made = []
+
+    def make(*a):
+        made.append(a)
+        return LocalCluster(3).transport(0)
+
+    monkeypatch.setattr(PT, "make_tcp_transport", make)
+    servers = {0: {"ip": "127.0.0.1", "ports": {1: 7100, 2: 7200}}}
+    PP.ProtocolInfo(_cfg(tmp_path, servers=servers, mpc_num_threads=0,
+                         binding_ipaddr="127.0.0.1"), 0, mpc_only=True)
+    PP.ProtocolInfo(_cfg(tmp_path, servers=servers, mpc_num_threads=3), 0, mpc_only=True)
+    assert made == [(0, 3, servers, 1, "127.0.0.1"), (0, 3, servers, 3, "0.0.0.0")]
 
 
 def test_shard_matmult_names_a11(tmp_path):
@@ -153,11 +168,24 @@ def test_cli_needs_a_card_unless_told(tmp_path, monkeypatch):
 
 
 def test_cli_without_local_sim_names_a8(tmp_path, monkeypatch):
+    """Without --local-sim the CLI runs the party the PID environment
+    variable names over the TCP mesh (A8); a mesh that cannot be built fails
+    the run with its error."""
+    from sfgwas_tpu_torch.parallel import transport as PT
+
     cfg = write_config(str(tmp_path / "g.toml"), str(tmp_path), str(tmp_path / "c"),
                        str(tmp_path / "o"))
     monkeypatch.setenv("PID", "1")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8"):
+    pids = []
+
+    def make(pid, *a):
+        pids.append(pid)
+        raise ConnectionError("no peer")
+
+    monkeypatch.setattr(PT, "make_tcp_transport", make)
+    with pytest.raises(ConnectionError, match="no peer"):
         cli.main(["--platform", "cpu", "--config-global", cfg])
+    assert pids == [1]
 
 
 def test_cli_party_failure_fails_the_run(tmp_path):

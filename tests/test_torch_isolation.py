@@ -49,7 +49,8 @@ def test_import_pulls_in_no_jax():
               "ops.ring", "ops.native_ring", "mpc.mpc", "mpc.boolean", "mpc.linalg",
               "mpc.ss_he", "utils.ddfloat", "crypto.basics", "gwas.qrfact", "gwas.assoc",
               "gwas.params", "gwas.filestream", "gwas.utilities", "gwas.qc", "gwas.pgen",
-              "gwas.matmult", "gwas.protocol", "cli", "utils.config", "utils.watchdog"):
+              "gwas.matmult", "gwas.protocol", "cli", "utils.config", "utils.watchdog",
+              "parallel.native_transport"):
         assert "sfgwas_tpu_torch." + m in MODULES
 
 
@@ -68,6 +69,26 @@ def test_default_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PC.CkksContext(get_params("TEST8"), device="cuda")
     assert PC.CkksContext(get_params("TEST8"), device="cpu").device.type == "cpu"
+
+
+def test_tcp_party_needs_a_card_unless_told(tmp_path, monkeypatch):
+    """The CLI's one-process-a-party path, like --local-sim, runs on the
+    card: with no card and no --platform it raises before the party opens
+    its mesh."""
+    from sfgwas_tpu_torch import cli
+    from sfgwas_tpu_torch.parallel import transport as PT
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def mesh(*a, **k):
+        raise AssertionError("the mesh was opened")
+
+    monkeypatch.setattr(PT, "make_tcp_transport", mesh)
+    cfg = tmp_path / "g.toml"
+    cfg.write_text('num_inds = [0, 4, 4]\nnum_snps = 10\n')
+    monkeypatch.setenv("PID", "2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--config-global", str(cfg)])
 
 
 def test_protocol_layers_pick_no_device(monkeypatch):
