@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --tree DIR --shapes FILE
+    python3 chip_smoke.py --pca-probe
 
 Phases (any failed check raises; the exit code is then nonzero):
  1. print the card's name and power limit (nvidia-smi);
@@ -128,8 +129,8 @@ Phases (any failed check raises; the exit code is then nonzero):
     from the plink2 counts, use_cached_keys, use_cached_qc,
     use_cached_combined_q, skip_pca) and paths in {pid} form, on data from
     --seed in a temporary directory removed at the end: per data party
-    1000 individuals, 5 covariates and the first 4 of the config's 22
-    blocks, 18,184 SNPs (phase 9's generators; phase 11 runs all 22).  Run
+    1000 individuals, 5 covariates and the first 2 of the config's 22
+    blocks, 9,092 SNPs (phase 9's generators; phase 11 runs 8).  Run
     1 is fresh, with every launch count set to 0 before it and read after
     it: all six kernels launched, K2 once a block at each data party and
     held bit for bit against its plain version on the same inputs right
@@ -144,8 +145,8 @@ Phases (any failed check raises; the exit code is then nonzero):
     host RSS are recorded; then K2 is timed at its first launch and K1,
     K3, K4, K5 and K6 are held against their plain versions at every shape
     of run 1 that no earlier phase checked, recorded at their wrappers;
-11. the same study at full depth (100,000 SNPs in 22 blocks, 21 x 4546 +
-    4534) as three party processes over loopback TCP: this script started
+11. the same study at 8 of the config's 22 blocks (36,368 SNPs) as three
+    party processes over loopback TCP: this script started
     again once a party (--party-run, PID in the environment, after this
     process built the six kernels, the ring engine and the transport
     library), each running cli.main with the global config (a
@@ -153,7 +154,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     and its own local config and no --platform, with phase 10's hooks and
     cpu_count // 3 OpenMP threads.  Run 1 is fresh: every party's launch
     counts set to 0 before and read after its run, all six kernels
-    launched, K2 22 times at each data party and held bit for bit against
+    launched, K2 8 times at each data party and held bit for bit against
     its plain version right after each launch in the process that launched
     it, the filter and the statistics held to the oracles; then, one party
     at a time, K1 and K3-K6 against their plain versions at every shape of
@@ -165,7 +166,37 @@ Phases (any failed check raises; the exit code is then nonzero):
     (Network's counters over the whole run), peak device memory and host
     RSS, and the card's peak used memory (nvidia-smi).  A party that fails
     or runs out of time stops the others and fails the run;
-12. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+12. the default-config study with PCA through the port's CLI, in this
+    process as phase 10 runs its study: config/configGlobal.toml's flags
+    (PN14QP438, its QC thresholds and count route, use_cached_keys, 5 PCs
+    with 10 oversampling columns, cholqr2, 5 shifted-QR iterations an
+    eigenvalue, snp_dist_thres 100,000), per data party 1000 individuals
+    and 5 covariates, the first 3 of the config's 22 blocks (13,638 SNPs)
+    and 2 of its 20 power iterations.  The genotypes come from three
+    subpopulations (Balding-Nichols allele frequencies at F_ST = 0.05
+    around phase 9's MAFs, each individual's subpopulation drawn
+    uniformly) and the phenotype has 5 planted effects and a shift per
+    subpopulation; the positions file spaces the SNPs so that LD pruning
+    keeps 10,000, which puts both PCA diagonal caches on the host-streamed
+    path.  Run 1 is fresh (launch counts set to 0 before it and read after
+    it, K2 held bit for bit against its plain version right after each
+    launch, party 1's spans synchronized on the card, the host chunks
+    copied to the card counted); run 2 resumes from the decrypted PCs
+    (use_cached_pca) and the QC, basis and key caches.  Checks: the
+    filters equal to the QC oracle; each run's decrypted PCs (the data
+    parties' Qpc.txt) finite, with each of the top two exact PCs of the
+    standardised, pruned, pooled genotypes in their span at |cos| >= 0.99;
+    the statistics within 2e-2 (corr > 0.999) of the oracle on [1 |
+    covariates | PCs]; run 2 without distributed_pca and within 2e-2 of run
+    1; the caches host-streamed; all six kernels launched.  Then K2 is timed
+    at its first (PCA) launch and K1, K3, K4, K5 and K6 are held against
+    their plain versions at every shape of run 1 that no earlier phase
+    checked.  Recorded: each run's command seconds, party 1's PCA spans
+    (the encode, the sketch, the moments, the Q scaling, each power
+    iteration's qxt, aggregation, bootstrap, qx and QR, the Gram, the
+    eigendecomposition, the sort, the subspace), the bytes of host chunks
+    copied to the card, peak device memory and host RSS;
+13. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
@@ -177,8 +208,13 @@ chiprun_out/ss_profile.txt, chiprun_out/qr_profile.txt and
 chiprun_out/assoc_profile.txt, the SASS listings to
 chiprun_out/sass_main_*.txt, party 1's assoc.txt of phase
 10's runs to chiprun_out/assoc_fresh.txt and chiprun_out/assoc_resumed.txt
-and of phase 11's to chiprun_out/assoc_tcp_{fresh,resumed}.txt, and the
-logs of phase 11's parties to chiprun_out/tcp_{fresh,resumed}_party*.log.
+and of phase 11's to chiprun_out/assoc_tcp_{fresh,resumed}.txt and of
+phase 12's to chiprun_out/assoc_pca_{fresh,resumed}.txt, and the logs of
+phase 11's parties to chiprun_out/tcp_{fresh,resumed}_party*.log.
+
+--pca-probe runs only pca_probe: phase 12's fresh study with collective
+decrypts around PCA's steps, up to the eigensolve (the in-vivo bisect of a
+PCA that misses its PCs; chiprun_out/pca_probe.txt).
 
 --tree DIR --shapes FILE times only K1 (at one product's shapes), K4 (at
 every path's draws), bs_mask (at the MHE and SS phases' row sets) and K6
@@ -1557,15 +1593,16 @@ def assoc_qc_oracle(data, fp, n_loc: int) -> np.ndarray:
     return keep & maf_ok & (chi < 2 * b * hwe_upper)
 
 
-def assoc_stat_oracle(data, keep: np.ndarray) -> np.ndarray:
+def assoc_stat_oracle(data, keep: np.ndarray, pcs=None) -> np.ndarray:
     """tests/test_e2e_gwas.py's oracle: each kept SNP's Pearson statistic
-    against the phenotype, both projected off [ones | covariates]
-    (missing dosages read as 0)."""
+    against the phenotype, both projected off [ones | covariates] (and the
+    columns of pcs where given; missing dosages read as 0)."""
     G = np.concatenate([data[1][0], data[2][0]])[:, keep].astype(np.float64)
     G[G < 0] = 0.0
     y = np.concatenate([data[1][1], data[2][1]])
     C = np.concatenate([data[1][2], data[2][2]])
-    Qm, _ = np.linalg.qr(np.column_stack([np.ones(len(y)), C]))
+    cols = [np.ones(len(y)), C] + ([] if pcs is None else [pcs])
+    Qm, _ = np.linalg.qr(np.column_stack(cols))
     yt = y - Qm @ (Qm.T @ y)
     Gt = G - Qm @ (Qm.T @ G)
     return (yt @ G) / np.sqrt((Gt * Gt).sum(0)) / np.sqrt(yt @ yt)
@@ -1854,8 +1891,9 @@ def assoc_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
 
 # config/configGlobal.toml's SNP axis: 100,000 SNPs in 22 blocks, 21 of 4,546
 STUDY_BLOCKS = [4546] * 21 + [4534]
-# phase 10's cut of that axis (phase 11 runs it whole): its first 4 blocks
-STUDY_LOCAL_BLOCKS = STUDY_BLOCKS[:4]
+# phase 10's cut of that axis: its first 2 blocks; phase 11's: its first 8
+STUDY_LOCAL_BLOCKS = STUDY_BLOCKS[:2]
+TCP_BLOCKS = STUDY_BLOCKS[:8]
 STUDY_RESUME_TOL = 2e-3  # tests/test_e2e_gwas.py:222
 # the configuration's flags: the preset, the thresholds, the QC route and the caches
 STUDY_CONFIG = "config/configGlobalSkipPCA.toml"
@@ -1925,18 +1963,26 @@ def _protocol_times(lines, pid: int) -> dict:
     raise AssertionError(f"no protocol line of party {pid}")
 
 
-def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, overrides: dict) -> tuple:
+def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, overrides: dict,
+                 pca_snps=None) -> tuple:
     """The study's files from the seed under root: per data party the
     genotype blocks geno.{i}.bin, blocksizes.txt, pheno.txt, cov.txt,
     pos.txt and plink2's count file (phase 9's generators over the whole
-    SNP axis), and a global config of cfg_src's flags (with overrides)
-    and the paths in {pid} form.  Returns (the data, the config's path)."""
+    SNP axis, 1,000 bp apart; with pca_snps, phase 12's: _pca_data, and
+    positions that LD pruning thins to pca_snps), and a global config of
+    cfg_src's flags (with overrides) and the paths in {pid} form.  Returns
+    (the data, the config's path)."""
     import tomllib
 
     from sfgwas_tpu_torch.gwas import filestream as FS
 
     m = sum(sizes)
-    data = _assoc_data(seed, n_loc, m, 1)
+    if pca_snps:
+        data = _pca_data(seed, n_loc, m)
+        pos = _pca_positions(assoc_qc_oracle(data, ASSOC_FILTER, n_loc), pca_snps)
+    else:
+        data = _assoc_data(seed, n_loc, m, 1)
+        pos = np.arange(m) * 1000
     edges = np.cumsum([0] + list(sizes))
     for pid in (1, 2):
         g, pheno, cov = data[pid]
@@ -1948,7 +1994,7 @@ def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, override
             f.write("".join(f"{s}\n" for s in sizes))
         np.savetxt(os.path.join(d, "pheno.txt"), pheno)
         np.savetxt(os.path.join(d, "cov.txt"), cov)
-        np.savetxt(os.path.join(d, "pos.txt"), np.arange(m) * 1000, fmt="%d")
+        np.savetxt(os.path.join(d, "pos.txt"), pos, fmt="%d")
         _count_file(g, os.path.join(d, "gcount.bin"))
     with open(cfg_src, "rb") as f:
         cfg = {k: v for k, v in tomllib.load(f).items() if k != "servers"}
@@ -1973,19 +2019,42 @@ def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, override
 def _study_hooks(torch, k2_inline: bool, keep_first: bool = True):
     """Wrappers for one CLI run: each party's collective_init timed with its
     bundle's keys_from_cache, each key-directory write timed, party 1's
-    host-clock spans (prof on, not synchronized), and with k2_inline every
-    K2 launch held against its plain version on the same inputs right
-    after it (bit equality; with keep_first, the first launch's inputs are
-    kept for the timed record)."""
+    spans (prof on), the calls of distributed_pca and the host chunks a
+    host-streamed diagonal cache materialised on the device (calls, bytes
+    of hi and lo copied), and with k2_inline every K2 launch held against
+    its plain version on the same inputs right after it (bit equality;
+    with keep_first, the first launch's inputs are kept for the timed
+    record)."""
     from sfgwas_tpu_torch.gwas import matmult as MM
+    from sfgwas_tpu_torch.gwas import pca as PP
     from sfgwas_tpu_torch.gwas import protocol as GP
     from sfgwas_tpu_torch.mpc import mhe as PM
     from sfgwas_tpu_torch.utils import prof
 
     hooks = _Patches()
-    got = {"init": {}, "save_s": [], "spans": None,
+    got = {"init": {}, "save_s": [], "spans": None, "pca_calls": 0,
+           "streamed": {"calls": 0, "rows": 0, "h2d_bytes": 0},
            "k2": {"launches": 0, "equal": 0, "check_s": 0.0, "first": None}}
     lock = threading.Lock()
+
+    def pca(real):
+        def wrapped(*a, **k):
+            with lock:
+                got["pca_calls"] += 1
+            return real(*a, **k)
+        return wrapped
+
+    def materialize(real):
+        def wrapped(self, cps, nmod, a, b):
+            step = 1024  # the host encode's chunk of diagonals
+            sub = self.chunks[a // step : -(-b // step)]
+            with lock:
+                st = got["streamed"]
+                st["calls"] += 1
+                st["rows"] += b - a
+                st["h2d_bytes"] += sum(hi.nbytes + lo.nbytes for hi, lo, _ in sub)
+            return real(self, cps, nmod, a, b)
+        return wrapped
 
     def init(real):
         def wrapped(net, *a, **k):
@@ -2038,22 +2107,27 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True):
     hooks.patch(PM, "collective_init", init)
     hooks.patch(PM, "_save_key_dir", save)
     hooks.patch(GP.ProtocolInfo, "gwas", gwas)
+    hooks.patch(PP, "distributed_pca", pca)
+    hooks.patch(MM.DiagBlock, "materialize_rows", materialize)
     if k2_inline:
         got["real_mac"] = hooks.patch(MM, "mac_dense", mac)
     return hooks, got
 
 
 def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
-                platform=None, overrides=None):
+                platform=None, overrides=None, pca_snps=None, resume_flags=None):
     """The study's two CLI runs (cli.main with --local-sim 3, and with
     --platform only where given; platform=None is the card): the files and
     config from the seed in a temporary directory (removed at the end),
     run 1 fresh with every launch count set to 0 before it and read after
     it (K2 held against its plain version at every launch, the other
-    kernels recorded at their wrappers), run 2 resumed from run 1's caches.
-    Party 1's assoc.txt of each run is copied to out_dir.  overrides
-    replaces config fields (a CPU rehearsal's preset and sizes).  Returns
-    (the data, each run's record)."""
+    kernels recorded at their wrappers), run 2 resumed from run 1's caches
+    (with resume_flags added to the config).  Party 1's assoc.txt of each
+    run is copied to out_dir.  overrides replaces config fields (a CPU
+    rehearsal's preset and sizes).  pca_snps makes phase 12's study (its
+    data, LD pruning to about that many SNPs, the spans synchronized on
+    the card, each run's decrypted PCs read back).  Returns (the data, each
+    run's record)."""
     import shutil
     import tempfile
 
@@ -2062,23 +2136,32 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
     from sfgwas_tpu_torch.utils import prof
 
     cuda = platform is None
+    tag = "pca_" if pca_snps else ""
     tmp = tempfile.mkdtemp(prefix="sfgwas_study_")
     runs: dict = {}
     try:
         t0 = time.time()
-        data, cfg = _study_files(tmp, seed, n_loc, sizes, cfg_src, overrides or {})
+        data, cfg = _study_files(tmp, seed, n_loc, sizes, cfg_src, overrides or {}, pca_snps)
         data_s = time.time() - t0
-        argv = ["--local-sim", "3", "--config-global", cfg]
-        if platform is not None:
-            argv += ["--platform", platform]
+        cfgs = {"fresh": cfg, "resumed": cfg}
+        if resume_flags:
+            cfgs["resumed"] = os.path.join(tmp, "resumed.toml")
+            with open(cfg) as f, open(cfgs["resumed"], "w") as g:
+                g.write(f.read() + "".join(f"{k} = {json.dumps(v)}\n"
+                                           for k, v in resume_flags.items()))
         for name in ("fresh", "resumed"):
             fresh = name == "fresh"
+            argv = ["--local-sim", "3", "--config-global", cfgs[name]]
+            if platform is not None:
+                argv += ["--platform", platform]
             hooks, got = _study_hooks(torch, k2_inline=fresh)
             rec = _collective_recorder(k3=True) if fresh else None
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             prof.ENABLED = True
+            if cuda and pca_snps:
+                prof.SYNC = torch.cuda.synchronize
             cuda_build.reset_launch_counts()
             try:
                 with _StdoutLines() as lines, _RssPeak() as rss:
@@ -2091,6 +2174,7 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
                 launches = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
             finally:
                 prof.ENABLED = False
+                prof.SYNC = None
                 hooks.restore()
                 if rec is not None:
                     rec.restore()
@@ -2099,7 +2183,7 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
             keep = {pid: np.loadtxt(os.path.join(tmp, "cache", f"party{pid}", "gkeep.txt"))
                     .astype(bool) for pid in (1, 2)}
             shutil.copy(os.path.join(tmp, "out", "party1", "assoc.txt"),
-                        os.path.join(out_dir, f"assoc_{name}.txt"))
+                        os.path.join(out_dir, f"assoc_{tag}{name}.txt"))
             runs[name] = dict(
                 command_s=cmd_s, data_s=data_s,
                 protocol_party1=_protocol_times(lines.lines(), 1),
@@ -2109,8 +2193,13 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
                 key_dir_write_s=got["save_s"], spans_party1_host_clock=got["spans"],
                 peak_device_bytes=torch.cuda.max_memory_allocated() if cuda else None,
                 peak_host_rss_bytes=rss.peak, launches=launches, stats=out, keep=keep, rec=rec,
-                k2=got["k2"], real_mac=got.get("real_mac"),
+                k2=got["k2"], real_mac=got.get("real_mac"), pca_calls=got["pca_calls"],
+                streamed=got["streamed"],
             )
+            if pca_snps:
+                runs[name]["qpc"] = np.concatenate([
+                    np.loadtxt(os.path.join(tmp, "cache", f"party{pid}", "Qpc.txt"),
+                               delimiter=",", ndmin=2).T for pid in (1, 2)])
             _say(f"study {name}: {cmd_s:.1f} s of command, party 1 "
                  f"{json.dumps(runs[name]['protocol_party1'])}, init "
                  f"{json.dumps(runs[name]['init_s'])}, launches {json.dumps(launches)}")
@@ -2152,8 +2241,8 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     """Phase 10: the linear skip-PCA study through the CLI, cli.main with
     --local-sim 3 and no --platform (the card), at the example's width: 2 x
     1000 individuals, 5 covariates, config/configGlobalSkipPCA.toml's flags,
-    and the first 4 of its 22 SNP blocks (18,184 SNPs; phase 11 runs all
-    22); run 1 fresh, run 2 resumed from its caches (_study_runs).  Then K2
+    and the first 2 of its 22 SNP blocks (9,092 SNPs; phase 11 runs 8);
+    run 1 fresh, run 2 resumed from its caches (_study_runs).  Then K2
     timed at its first launch and every other kernel at each shape of run 1
     that no earlier phase checked.  Appends the kernels' records to
     `kernels`; returns the phase's record."""
@@ -2174,7 +2263,7 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         "blocks": len(sizes), "block_snps": sizes[0], "config": STUDY_CONFIG,
         "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
                     "blocks": [len(STUDY_BLOCKS), len(sizes)],
-                    "why": "time: phase 11 runs the whole SNP axis through the TCP mesh"},
+                    "why": "time: the whole script runs within its 1,200 s"},
         "checks": checks, "data_s": fresh["data_s"],
         "k2_inline_checks": {k: k2[k] for k in ("launches", "equal", "check_s")},
         "host_cpu": f"{_cpu_model()}, {os.cpu_count()} logical cores",
@@ -2541,8 +2630,9 @@ def _tcp_run(name: str, d: str, cfgs: list, kernels: list, out_dir: str,
 
 def tcp_study_phase(torch, seed: int, out_dir: str, kernels: list, n_loc: int = 1000,
                     sizes=STUDY_BLOCKS, platform=None, overrides=None) -> dict:
-    """Phase 11: the study of phase 10 at full depth (2 x 1000 individuals,
-    5 covariates, 100,000 SNPs in 22 blocks, configGlobalSkipPCA.toml's
+    """Phase 11: the study of phase 10 at the depth `sizes` gives (2 x 1000
+    individuals, 5 covariates, main() runs the first 8 of the config's 22
+    blocks; the default is all 22), configGlobalSkipPCA.toml's
     flags) as three party processes over loopback TCP, each `cli.main` with
     its PID and its local config and no --platform (the card), fresh, then
     resumed from the caches.  The six kernels, the ring engine and the
@@ -2598,6 +2688,9 @@ def tcp_study_phase(torch, seed: int, out_dir: str, kernels: list, n_loc: int = 
     line = {
         "individuals": [0, n_loc, n_loc], "covariates": 5, "snps": int(sum(sizes)),
         "blocks": len(sizes), "config": STUDY_CONFIG, "transport": "NativeTCPTransport",
+        "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
+                    "blocks": [len(STUDY_BLOCKS), len(sizes)],
+                    "why": "time: the whole script runs within its 1,200 s"},
         "mpc_num_threads": 1, "omp_threads_per_party": TCP_PARTY_THREADS, "build_s": build_s,
         "data_s": data_s, "checks": checks, "fresh_launches_all_parties": total,
         "host_cpu": f"{_cpu_model()}, {os.cpu_count()} logical cores",
@@ -2650,12 +2743,415 @@ def tcp_study_phase(torch, seed: int, out_dir: str, kernels: list, n_loc: int = 
     return line
 
 
+# ---------------------------------------------------------------------------
+# 12. the default-config study with PCA through the CLI
+
+# the shipped configuration: PCA on (5 PCs, 10 oversampling columns, cholqr2,
+# 5 shifted-QR iterations an eigenvalue), QC from the plink2 counts
+PCA_CONFIG = "config/configGlobal.toml"
+PCA_BLOCKS = STUDY_BLOCKS[:3]  # the first 3 of the config's 22 blocks
+PCA_SNPS = 10_000  # LD-pruned SNPs: the example's order (sfgwas_tpu/gwas/pca.py:60-61)
+PCA_POWER_ITERS = 2  # of the config's 20
+PCA_NPOP, PCA_FST = 3, 0.05  # Balding-Nichols subpopulations
+PCA_SHIFT = (0.0, 0.8, -0.8)  # the phenotype's mean in each subpopulation
+PCA_MIN_COS = 0.99  # |cos| of each of the top two exact PCs with span(Qpc)
+PCA_RESUME_TOL = 2e-2  # tests/test_e2e_gwas.py:357
+# run 2: the decrypted PCs, the filter, the basis and the products from run 1's caches
+PCA_RESUME = {"use_cached_pca": True, "use_cached_qc": True, "use_cached_combined_q": True}
+
+
+def _pca_data(seed: int, n_loc: int, m: int, ncov: int = 5):
+    """Phase 12's data from the seed, per data party: genotypes [n_loc, m]
+    of three subpopulations, each individual's drawn uniformly (so each
+    spans both parties), with Balding-Nichols allele frequencies at F_ST =
+    0.05 around an ancestral MAF uniform in [0.02, 0.5], about 1% missing
+    (-1); 5 covariates at phase 8's column scales; a phenotype with 5
+    planted effects and a shift per subpopulation."""
+    rng = np.random.default_rng(seed + 12)
+    p = rng.uniform(0.02, 0.5, size=m)
+    k = (1 - PCA_FST) / PCA_FST
+    freqs = rng.beta(p * k, (1 - p) * k, size=(PCA_NPOP, m))
+    planted = rng.choice(m, 5, replace=False)
+    out = {}
+    for pid in (1, 2):
+        lab = rng.integers(0, PCA_NPOP, size=n_loc)
+        g = rng.binomial(2, freqs[lab]).astype(np.int8)
+        g[rng.uniform(size=(n_loc, m)) < 0.01] = -1
+        cov = rng.normal(size=(n_loc, ncov)) * np.array([1.0, 20.0, 0.1, 50.0, 0.3])[:ncov]
+        pheno = (rng.normal(size=n_loc) + 0.3 * np.maximum(g[:, planted], 0).sum(1)
+                 + np.asarray(PCA_SHIFT)[lab])
+        out[pid] = (g, pheno, cov)
+    return out
+
+
+def _pca_positions(keep: np.ndarray, target: int) -> np.ndarray:
+    """Base-pair positions, ascending, such that LD pruning at
+    config/configGlobal.toml's snp_dist_thres (100,000 bp) keeps the first
+    `target` SNPs that QC keeps: each of those lies 100,000 bp past the
+    SNP before it, every other SNP 1 bp."""
+    kept = np.flatnonzero(keep)[:target]
+    gap = np.ones(len(keep), np.int64)
+    gap[kept] = 100_000
+    return np.cumsum(gap)
+
+
+def ld_prune_oracle(keep: np.ndarray, pos: np.ndarray, dist: int) -> np.ndarray:
+    """The greedy pruning of gwas/gwas.go:609-626 in numpy terms: a kept SNP
+    stays when it lies at least dist past the last one that stayed."""
+    out = np.zeros(len(keep), bool)
+    last = None
+    for i in np.flatnonzero(keep):
+        if last is None or pos[i] >= last + dist:
+            out[i], last = True, pos[i]
+    return out
+
+
+def pca_study_check(data, runs, n_loc: int, sizes, pca_snps: int, npc: int) -> dict:
+    """The filters against the QC oracle; each run's decrypted PCs finite,
+    and each of the top two PCs of the standardised, pruned, pooled
+    genotypes in their span; the statistics against the oracle on [1 |
+    covariates | the run's PCs]; the resumed run's against the fresh run's."""
+    fresh, resumed = runs["fresh"], runs["resumed"]
+    keep = assoc_qc_oracle(data, ASSOC_FILTER, n_loc)
+    pruned = ld_prune_oracle(keep, _pca_positions(keep, pca_snps), 100_000)
+    G = np.concatenate([data[1][0], data[2][0]])[:, pruned].astype(np.float64)
+    G[G < 0] = 0.0
+    sd = G.std(0)
+    Gs = (G - G.mean(0)) / np.where(sd > 0, sd, 1.0)
+    u, sv, _ = np.linalg.svd(Gs, full_matrices=False)
+    checks = {"snps": int(len(keep)), "kept": int(keep.sum()), "pruned": int(pruned.sum()),
+              "singular_values_top4": sv[:4].tolist()}
+    for name, r in runs.items():
+        q = r["qpc"]
+        ok = q.shape == (2 * n_loc, npc) and bool(np.isfinite(q).all())
+        basis = np.linalg.qr(q)[0] if ok else None
+        checks[f"{name}_qpc"] = {
+            "shape": list(q.shape), "finite": bool(np.isfinite(q).all()),
+            "cos_top2": ([float(np.linalg.norm(basis.T @ u[:, k])) for k in range(2)]
+                         if ok else None),
+        }
+        checks[f"{name}_filter_equal"] = {p: bool(np.array_equal(r["keep"][p], keep))
+                                          for p in (1, 2)}
+    want = assoc_stat_oracle(data, keep, fresh["qpc"])
+    for pid in (1, 2):
+        got = fresh["stats"][pid]
+        ok_shape = got.shape == want.shape
+        checks[pid] = {
+            "finite": bool(np.isfinite(got).all()),
+            "max_abs_err": float(np.abs(got - want).max()) if ok_shape else None,
+            "corr": float(np.corrcoef(got, want)[0, 1]) if ok_shape else None,
+            "resumed_max_abs_diff": (float(np.abs(resumed["stats"][pid] - got).max())
+                                     if resumed["stats"][pid].shape == got.shape else None),
+        }
+    return checks
+
+
+def _pca_study_runs(torch, seed: int, out_dir: str, n_loc: int = 1000, sizes=PCA_BLOCKS,
+                    pca_snps: int = PCA_SNPS, platform=None, overrides=None):
+    """Phase 12's two CLI runs (_study_runs on config/configGlobal.toml with
+    the power iterations cut to PCA_POWER_ITERS; platform=None is the
+    card).  A CPU rehearsal: platform="cpu" with a small n_loc, sizes and
+    pca_snps and, in overrides, "ckks_params": "TEST8", num_inds and
+    num_snps (and smaller PCA sizes: kp 15 costs minutes of SS work)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    fields = {"num_snps": int(sum(sizes)), "num_power_iters": PCA_POWER_ITERS}
+    fields.update(overrides or {})
+    return _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, PCA_CONFIG),
+                       platform=platform, overrides=fields, pca_snps=pca_snps,
+                       resume_flags=PCA_RESUME)
+
+
+def _pca_spans(spans) -> dict:
+    """Party 1's PCA spans (seconds), and per stage the power iterations'
+    sum."""
+    pca = {k: v for k, v in (spans or {}).items() if k.startswith("pca_")}
+    per_stage: dict = {}
+    for k, secs in pca.items():
+        m = re.match(r"pca_iter\d+_(\w+)$", k)
+        if m:
+            per_stage[m.group(1)] = per_stage.get(m.group(1), 0.0) + secs
+    return {"spans": pca, "power_iterations_by_stage": per_stage}
+
+
+def pca_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
+    """Phase 12: the default-config study with PCA through the CLI, cli.main
+    with --local-sim 3 and no --platform (the card), at the shipped width:
+    PN14QP438, 2 x 1000 individuals, 5 covariates, 5 PCs with 10
+    oversampling columns (kp 15), cholqr2, QC from the counts at
+    config/configGlobal.toml's thresholds, LD pruning at 100,000 bp to
+    10,000 SNPs (host-streamed diagonal caches), the first 3 of the
+    config's 22 blocks and 2 of its 20 power iterations; run 1 fresh, run 2
+    resumed from the decrypted PCs and the other caches.  Then K2 timed at
+    its first launch (a PCA shape) and every other kernel at each shape of
+    run 1 that no earlier phase checked.  Appends the kernels' records to
+    `kernels`; returns the phase's record."""
+    from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.gwas import matmult as MM
+
+    params = get_params("PN14QP438")
+    n_loc, sizes, npc = 1000, PCA_BLOCKS, 5
+    t_phase = time.time()
+    data, runs = _pca_study_runs(torch, seed, out_dir, n_loc, sizes)
+    checks = pca_study_check(data, runs, n_loc, sizes, PCA_SNPS, npc)
+    fresh, resumed = runs["fresh"], runs["resumed"]
+    k2 = fresh["k2"]
+    line = {
+        "individuals": [0, n_loc, n_loc], "covariates": 5, "snps": int(sum(sizes)),
+        "blocks": len(sizes), "config": PCA_CONFIG, "pcs": npc, "oversampling": 10,
+        "power_iterations": PCA_POWER_ITERS, "pca_snps_target": PCA_SNPS,
+        "population": {"subpopulations": PCA_NPOP, "fst": PCA_FST, "shift": PCA_SHIFT},
+        "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
+                    "blocks": [len(STUDY_BLOCKS), len(sizes)],
+                    "power_iterations": [20, PCA_POWER_ITERS],
+                    "why": "time: the whole script runs within its 1,200 s"},
+        "checks": checks, "data_s": fresh["data_s"],
+        "k2_inline_checks": {k: k2[k] for k in ("launches", "equal", "check_s")},
+        "host_cpu": f"{_cpu_model()}, {os.cpu_count()} logical cores",
+    }
+    for name, r in runs.items():
+        line[name] = {k: r[k] for k in (
+            "command_s", "protocol_party1", "protocol_party2", "init_s", "keys_from_cache",
+            "peak_device_bytes", "peak_host_rss_bytes", "launches", "pca_calls", "streamed")}
+        line[name]["pca_party1"] = _pca_spans(r["spans_party1_host_clock"])
+        line[name]["spans_party1"] = r["spans_party1_host_clock"]
+    line["fresh"]["cache_mode"] = "host-streamed" if fresh["streamed"]["calls"] else "device"
+    _say(f"pca study phase: {json.dumps(line)}")
+    for name in runs:
+        for pid, eq in checks[f"{name}_filter_equal"].items():
+            if not eq:
+                raise AssertionError(f"pca {name} run, party {pid}: the revealed SNP filter "
+                                     "differs from the oracle")
+        q = checks[f"{name}_qpc"]
+        if not q["finite"] or q["cos_top2"] is None or min(q["cos_top2"]) < PCA_MIN_COS:
+            raise AssertionError(f"pca {name} run: the PCs {q} miss the top two exact PCs")
+    for pid in (1, 2):
+        c = checks[pid]
+        if (not c["finite"] or c["max_abs_err"] is None or not c["max_abs_err"] <= ASSOC_STAT_TOL
+                or not c["corr"] > ASSOC_MIN_CORR):
+            raise AssertionError(f"pca party {pid}: statistics off: max abs err "
+                                 f"{c['max_abs_err']}, corr {c['corr']}, finite {c['finite']}")
+        if c["resumed_max_abs_diff"] is None or not c["resumed_max_abs_diff"] < PCA_RESUME_TOL:
+            raise AssertionError(f"pca party {pid}: the resumed run is off the fresh one by "
+                                 f"{c['resumed_max_abs_diff']}")
+    if fresh["pca_calls"] != 3 or resumed["pca_calls"]:
+        raise AssertionError(f"distributed_pca ran {fresh['pca_calls']} / "
+                             f"{resumed['pca_calls']} times (fresh / resumed)")
+    if not fresh["streamed"]["calls"]:
+        raise AssertionError("the PCA caches were not host-streamed")
+    missing = [k for k in ASSOC_PATH if fresh["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the pca study's fresh run: {missing}")
+    if (k2["launches"] != fresh["launches"]["mac_dense"] or k2["equal"] != k2["launches"]
+            or not k2["launches"]):
+        raise AssertionError(f"K2 equal to its plain version at {k2['equal']} of "
+                             f"{k2['launches']} launches")
+    rec = fresh.pop("rec")
+    del runs, resumed
+    R0, R1, polys, mruns, q, mu, logn, nacc = k2.pop("first")
+    _k2_check(torch, MM, kernels,
+              f"mac_dense (pca) {[mruns.nruns, int(mruns.run_start_host[-1])]}",
+              fresh["real_mac"], R0, R1, polys, mruns, q, mu, logn, nacc)
+    kernels[-1].update(launches=fresh["launches"]["mac_dense"], path="pca_study",
+                       launches_at_shape=1, inline_equal_launches=k2["equal"])
+    del R0, R1, polys, mruns
+    torch.cuda.empty_cache()
+    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+        torch, rec, fresh["launches"], params, kernels, "pca_study", new_only=True)
+    del rec
+    line.update(k1_new_shapes_total_ms=k1_total, k1_shapes=k1_shapes, tree_shapes=tree_shapes,
+                phase_s=time.time() - t_phase)
+    return line
+
+
+class _ProbeStop(Exception):
+    """Ends a --pca-probe run after the eigensolve."""
+
+
+def pca_probe(torch, seed: int, out_dir: str, n_loc: int = 1000, sizes=PCA_BLOCKS,
+              pca_snps: int = PCA_SNPS, platform=None, overrides=None) -> list:
+    """The in-vivo bisect of PCA (python3 chip_smoke.py --pca-probe): phase
+    12's fresh run through the CLI with one power iteration, each data
+    party decrypting collectively the inputs and outputs of the Q
+    scaling's steps (sfgwas_tpu/gwas/pca.py:186-217: the mean-weight
+    multiply, the 1/sqrt(count) multiply after the mixed-level add, the
+    std-inverse multiply), the aggregations, the bootstraps, the lazily
+    normalised products and the first QR, and then the Gram, and every
+    party revealing the eigenvalues.  Each line gives a step's levels and
+    scales (log2), its |max| at each data party and, where numpy can
+    redo the step on the decrypted inputs, the error.  The run stops after
+    the eigensolve.  Writes the lines to out_dir/pca_probe.txt and
+    returns them.  platform="cpu" with small sizes and a TEST8 preset in
+    overrides rehearses it on the CPU."""
+    import math
+    import shutil
+    import tempfile
+
+    from sfgwas_tpu_torch import cli
+    from sfgwas_tpu_torch.crypto import basics as B
+    from sfgwas_tpu_torch.gwas import matmult as MM
+    from sfgwas_tpu_torch.gwas import pca as PP
+    from sfgwas_tpu_torch.mpc import linalg as PL
+    from sfgwas_tpu_torch.mpc import mhe as PM
+
+    tl = threading.local()
+    lock = threading.Lock()
+    calls: dict = {}
+    lines: list = []
+    last_qx: dict = {}
+
+    def say(msg):
+        with lock:
+            lines.append(msg)
+        _say(msg)
+
+    def flat(x):
+        if isinstance(x, list) and x and isinstance(x[0], list):
+            return [ct for row in x for ct in row]
+        return list(x) if isinstance(x, list) else [x]
+
+    def is_cts(x):
+        return isinstance(x, list) and bool(x) and hasattr(flat(x)[0], "c0")
+
+    def dec(cps, cts):
+        """Each data party's version of a ciphertext list, decoded."""
+        out = {}
+        for p in (1, 2):
+            mine = cts if tl.net.pid == p else [None] * len(cts)
+            pts = PM.collective_decrypt_many(tl.net, cps, mine, p)
+            out[p] = np.stack([np.asarray(cps.ctx.decode(pt)) for pt in pts])
+        return out
+
+    def levels(cts):
+        return sorted({(c.nmod, round(math.log2(c.scale), 3)) for c in cts})
+
+    def probe(name, limit, expect=None):
+        def make(real):
+            def wrapped(*a, **k):
+                net = getattr(tl, "net", None)
+                if net is None or net.pid == 0:
+                    return real(*a, **k)
+                with lock:
+                    n = calls.get((name, net.pid), 0)
+                    calls[(name, net.pid)] = n + 1
+                out = real(*a, **k)
+                if n >= limit:
+                    return out
+                cps = next(x for x in a if hasattr(x, "ctx") and hasattr(x, "slots"))
+                ins = [x for x in a if is_cts(x)]
+                din = [dec(cps, flat(x)) for x in ins]
+                dout = dec(cps, flat(out))
+                tag = f"pid{net.pid} {name}#{n}"
+                for i, (x, d) in enumerate(zip(ins, din)):
+                    say(f"{tag} in{i}: {levels(flat(x))} |max| "
+                        f"{[float(np.abs(v).max()) for v in d.values()]}")
+                say(f"{tag} out: {levels(flat(out))} |max| "
+                    f"{[float(np.abs(v).max()) for v in dout.values()]}")
+                if name == "qx":
+                    last_qx[net.pid] = dout
+                if expect is not None:
+                    want = expect(a, din)
+                    got = dout[net.pid].reshape(-1)[: want.size]
+                    say(f"{tag} max err {float(np.abs(got - want.reshape(-1)).max()):.3e} "
+                        f"(|expected| max {float(np.abs(want).max()):.3e})")
+                return out
+            return wrapped
+        return make
+
+    def pca(real):
+        def wrapped(mpc, cps, X, nsnp, nrows_all, npc, over, *a, **k):
+            tl.net, tl.mpc, tl.n, tl.m, tl.kp = mpc.net, mpc, sum(nrows_all[1:]), nsnp, npc + over
+            try:
+                return real(mpc, cps, X, nsnp, nrows_all, npc, over, *a, **k)
+            finally:
+                tl.net = None
+        return wrapped
+
+    def gram(real):
+        def wrapped(cps, cts, slot_lists, nct, value=1.0, cache_key=None):
+            out = real(cps, cts, slot_lists, nct, value=value, cache_key=cache_key)
+            if cache_key and cache_key[0] == "pca_gram":
+                tl.gram_value = value
+            return out
+        return wrapped
+
+    def gram_out(real):
+        def wrapped(net, cps, cv, src, *a, **k):
+            out = real(net, cps, cv, src, *a, **k)
+            if getattr(tl, "gram_value", None) is None or net.pid == 0:
+                return out
+            z = dec(cps, flat(out))[net.pid].reshape(-1)[: tl.kp * tl.kp].reshape(tl.kp, tl.kp)
+            q = np.concatenate([last_qx[net.pid][p].reshape(tl.kp, -1) for p in (1, 2)], axis=1)
+            want = q @ q.T * tl.gram_value
+            say(f"pid{net.pid} gram: {levels(flat(out))} |max| {float(np.abs(z).max()):.3e}, "
+                f"max err {float(np.abs(z - want).max()):.3e}, top eigenvalue "
+                f"{float(np.linalg.eigvalsh(want)[-1]):.4e} (x c = "
+                f"{float(np.linalg.eigvalsh(want)[-1]) * PP.gram_scale(tl.mpc, tl.n, tl.m, tl.kp):.4e})")
+            tl.gram_value = None
+            return out
+        return wrapped
+
+    def eigen(real):
+        def wrapped(mpc, A, *a, **k):
+            V, L = real(mpc, A, *a, **k)
+            if getattr(tl, "net", None) is not None:
+                if mpc.pid > 0:
+                    vals = mpc.ring.to_float(mpc.reveal_sym(L), mpc.frac_bits)
+                    say(f"pid{mpc.pid} eigen_decomp: eigenvalues {np.sort(vals)[::-1][:4].tolist()}")
+                # the dealer's part only sends: it waits here for the data parties
+                mpc.assert_sync()
+                raise _ProbeStop()
+            return V, L
+        return wrapped
+
+    def const(a, din):
+        return din[0][tl.net.pid] * a[2]
+
+    def prod(a, din):
+        return din[0][tl.net.pid] * din[1][tl.net.pid]
+
+    hooks = _Patches()
+    hooks.patch(PP, "distributed_pca", pca)
+    hooks.patch(B, "cmult_const", probe("cmult_const", 4, const))
+    hooks.patch(B, "cmult", probe("cmult", 2, prod))
+    hooks.patch(PM, "aggregate_cmat", probe("aggregate_cmat", 1))
+    hooks.patch(PM, "bootstrap_mat", probe("bootstrap_mat", 2))
+    hooks.patch(MM, "qx_lazy_norm_stream", probe("qx", 2))
+    hooks.patch(MM, "qxt_lazy_norm_stream", probe("qxt", 1))
+    hooks.patch(PP, "net_qr", probe("net_qr", 1))
+    hooks.patch(B, "mask_scatter_sum", gram)
+    hooks.patch(PM, "bootstrap_vec", gram_out)
+    hooks.patch(PL, "eigen_decomp", eigen)
+    root = os.path.dirname(os.path.abspath(__file__))
+    fields = {"num_snps": int(sum(sizes)), "num_power_iters": 1}
+    fields.update(overrides or {})
+    tmp = tempfile.mkdtemp(prefix="sfgwas_probe_")
+    try:
+        _, cfg = _study_files(tmp, seed, n_loc, sizes, os.path.join(root, PCA_CONFIG), fields,
+                              pca_snps)
+        argv = ["--local-sim", "3", "--config-global", cfg]
+        if platform is not None:
+            argv += ["--platform", platform]
+        try:
+            cli.main(argv)
+            raise AssertionError("the probe's run did not reach the eigensolve")
+        except _ProbeStop:
+            pass
+    finally:
+        hooks.restore()
+        shutil.rmtree(tmp, ignore_errors=True)
+    with open(os.path.join(out_dir, "pca_probe.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tree", metavar="DIR",
                     help="time only K1, K4, bs_mask and K6 of the package under DIR")
     ap.add_argument("--shapes", metavar="FILE", help="their shapes (a full run's shapes.json)")
+    ap.add_argument("--pca-probe", action="store_true",
+                    help="only the in-vivo bisect of PCA (pca_probe): decrypts around its steps")
     # phase 11 starts each party as this script with these (PID in the environment)
     ap.add_argument("--party-run", choices=("fresh", "resumed"), help=argparse.SUPPRESS)
     ap.add_argument("--party-dir", help=argparse.SUPPRESS)
@@ -2676,6 +3172,16 @@ def main() -> int:
         return 2
     if args.tree:
         return tree_only(torch, args.tree, args.shapes)
+    if args.pca_probe:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from sfgwas_tpu_torch.ops import cuda_build
+
+        _say(_smi())
+        cuda_build.build()
+        out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+        os.makedirs(out, exist_ok=True)
+        pca_probe(torch, args.seed, out)
+        return 0
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "chiprun_out")
     sys.path.insert(0, root)
@@ -2908,12 +3414,15 @@ def main() -> int:
     # ---- 10. the study through the CLI, fresh and resumed
     study = study_phase(torch, args.seed, out_dir, kernels)
     # ---- 11. the study as three party processes over loopback TCP
-    tcp_study = tcp_study_phase(torch, args.seed, out_dir, kernels)
+    tcp_study = tcp_study_phase(torch, args.seed, out_dir, kernels, sizes=TCP_BLOCKS,
+                                overrides={"num_snps": int(sum(TCP_BLOCKS))})
+    # ---- 12. the default-config study with PCA through the CLI
+    pca_study = pca_study_phase(torch, args.seed, out_dir, kernels)
     # the shapes --tree times: K1's of one product, K4's of every path,
     # bs_mask's and K6's of the collective phases
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
               "crt_lift": []}
-    for phase in (mhe, ss, qr, assoc, study, tcp_study):
+    for phase in (mhe, ss, qr, assoc, study, tcp_study, pca_study):
         for key, found in phase.pop("tree_shapes").items():
             shapes[key] += [s for s in found if s not in shapes[key]]
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
@@ -2952,6 +3461,7 @@ def main() -> int:
         "assoc": assoc,
         "study": study,
         "tcp_study": tcp_study,
+        "pca_study": pca_study,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

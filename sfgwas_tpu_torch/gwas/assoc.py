@@ -7,7 +7,7 @@ The linear statistic of a SNP is stdinvx * stdinvy * sxy, with y~ the
 phenotype projected off the covariate basis Q: one concatenated product
 [Q | y~] x G per genotype block gives Q^T G and sxy; the variances go
 through the SS domain for their inverse square roots.  The logistic path
-follows (ROADMAP A9).
+follows (ROADMAP A10).
 """
 
 from __future__ import annotations

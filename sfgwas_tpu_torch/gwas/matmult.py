@@ -9,18 +9,26 @@ a CSR list of accumulator runs that the plan builds on the host; the
 giant-step rotations of all accumulated groups run as one grouped
 keyswitch; a combine per block column and one batched double rescale
 finish.  Diagonals are encoded once (preprocess_matrix) and stay on the
-device.  Nothing in a product reads a value back from the device.
+device, or, for a matrix whose encoded diagonals would not fit the card
+(PCA's X and X^T at example scale), stay on the host as pre-NTT integer
+chunks (host_block_diagonals, spilled to .npy files and memory-mapped back)
+and are reduced and NTT'd on the device just for the rows each MAC launch
+reads, in groups bounded by a byte budget.  Nothing in a product reads a
+value back from the device.
 
 The streamed product (mat_mult_stream) encodes one genotype block, on the
 host (preprocess_matrix_host, safe on a prefetch thread) and then on the
 device (finish_preprocess_matrix), multiplies it once and releases its
-plan; dc_matmul_aat_b is the distributed A A^T B over row-partitioned A.
+plan; dc_matmul_aat_b is the distributed A A^T B over row-partitioned A;
+qx_lazy_norm_stream and qxt_lazy_norm_stream are the lazily normalised
+products of the PCA power iteration.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -46,6 +54,15 @@ MM_CHUNK_BYTES = 256 * 1024 * 1024
 MAC_MAX_TERMS = 4096
 _PLAIN_STEP = 64  # entries per int64 product in the plain MAC
 _ENC_STEP = 1024  # diagonals per host FFT batch
+# host-streamed plans: bytes of diagonal polys materialised on the device per
+# MAC launch (the bounded working set of the streaming mode)
+STREAM_GROUP_BYTES = 1 << 30
+# the giant step keyswitches at most this many bytes of accumulated
+# ciphertexts (c1) at once: its basis extension holds ~nmod+1 times as much,
+# so the 15 rows of PCA's 183-segment cache go in 5 grouped keyswitches (one
+# would hold ~30 GB); a block product of 8 or fewer rows at the example's
+# shapes stays one grouped keyswitch
+GIANT_BATCH_BYTES = 256 << 20
 
 
 def mm_nmod(cps: CryptoParams) -> int:
@@ -53,23 +70,37 @@ def mm_nmod(cps: CryptoParams) -> int:
 
 
 class DiagBlock:
-    """Encoded diagonals of one slots x slots block of the plaintext matrix:
-    the [K, nmod, N] int32 NTT-domain polys (device-resident) with their
-    (giant, baby) indices."""
+    """Encoded diagonals of one slots x slots block of the plaintext matrix
+    with their (giant, baby) indices, in one of two residencies:
+    * device: `polys` holds the [K, nmod, N] int32 NTT-domain stack;
+    * host-streaming: `chunks` holds the pre-NTT integer coefficients of the
+      host encode as (hi, lo, kc) chunks of <= 1024 diagonals; a product
+      materialises on the device just the rows each MAC launch reads
+      (materialize_rows), so the working set stays bounded however long the
+      SNP axis is (the Go sfgwas's DiagCacheStream, gwas/filestream.go)."""
 
-    def __init__(self, giants, babies, polys, d):
+    def __init__(self, giants, babies, polys, d, chunks=None):
         self.giants = np.asarray(giants, np.int32)  # [K]
         self.babies = np.asarray(babies, np.int32)  # [K]
         self.polys = polys  # [K, nmod, N] int32 or None
         self.d = d
+        self.chunks = chunks  # host [(hi, lo, kc)] or None
 
     @property
     def empty(self) -> bool:
-        return self.polys is None
+        return self.polys is None and self.chunks is None
 
     @property
     def num_diags(self) -> int:
         return len(self.giants)
+
+    def materialize_rows(self, cps, nmod: int, a: int, b: int):
+        """Device polys [b - a, nmod, N] of diagonal rows [a, b), from the
+        host chunks (host-streaming mode)."""
+        assert self.chunks is not None
+        c0, c1 = a // _ENC_STEP, -(-b // _ENC_STEP)
+        polys = _encode_diag_device(cps, self.chunks[c0:c1], nmod)
+        return polys[a - c0 * _ENC_STEP : b - c0 * _ENC_STEP]
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +146,12 @@ def _encode_diag_host(cps: CryptoParams, vecs: np.ndarray):
     return chunks
 
 
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over a host chunk; a spilled chunk (a read-only memory
+    map) is read into memory first."""
+    return torch.from_numpy(a if a.flags.writeable else np.array(a))
+
+
 def _encode_diag_device(cps: CryptoParams, chunks, nmod: int):
     """Device half: per-prime reduction + NTT (kernel K1) of the host
     chunks -> [K, nmod, N] int32."""
@@ -125,8 +162,7 @@ def _encode_diag_device(cps: CryptoParams, chunks, nmod: int):
     k0 = 0
     for hi, lo, kc in chunks:
         poly = _mod_ntt_b(
-            torch.from_numpy(hi).to(ctx.device),
-            torch.from_numpy(lo.view(np.int32)).to(ctx.device),
+            _host_tensor(hi).to(ctx.device), _host_tensor(lo.view(np.int32)).to(ctx.device),
             ctx.basis, rows, plain=not ctx.kernels,
         )  # [nmod, step, N]
         out[k0 : k0 + kc] = poly[:, :kc].transpose(0, 1)
@@ -175,19 +211,103 @@ def encode_block_diagonals(cps: CryptoParams, block: np.ndarray, nmod: int) -> D
     return finish_block_diagonals(cps, encode_block_diagonals_host(cps, block), nmod)
 
 
+def host_block_diagonals(cps: CryptoParams, block: np.ndarray,
+                         spill: Optional[str] = None) -> DiagBlock:
+    """Host-streaming DiagBlock: the integer coefficient chunks only.  With
+    `spill`, the chunks are written once to spill + .hi.npy / .lo.npy /
+    .meta.npz and memory-mapped back, so host RSS stays bounded by the
+    pages a product touches; an existing spill is loaded as it is (a
+    restart)."""
+    if spill and os.path.exists(spill + ".meta.npz"):
+        return _load_host_block(spill)
+    giants, babies, d, chunks = encode_block_diagonals_host(cps, block)
+    blk = DiagBlock(giants, babies, None, d, chunks=chunks)
+    if spill:
+        _spill_host_block(blk, spill)
+        return _load_host_block(spill)
+    return blk
+
+
+def _spill_host_block(blk: DiagBlock, path: str) -> None:
+    """The JAX package's layout: hi [K, N] int32, lo [K, N] uint32 and the
+    indices, so either package loads the other's spill."""
+    np.save(path + ".hi.npy", np.concatenate([c[0][: c[2]] for c in blk.chunks]))
+    np.save(path + ".lo.npy", np.concatenate([c[1][: c[2]] for c in blk.chunks]))
+    np.savez(path + ".meta.npz", giants=blk.giants, babies=blk.babies, d=blk.d)
+
+
+def _load_host_block(path: str) -> DiagBlock:
+    with np.load(path + ".meta.npz") as z:
+        giants, babies, d = z["giants"], z["babies"], int(z["d"])
+    hi = np.load(path + ".hi.npy", mmap_mode="r")
+    lo = np.load(path + ".lo.npy", mmap_mode="r")
+    K = hi.shape[0]
+    chunks = [(hi[k0 : k0 + _ENC_STEP], lo[k0 : k0 + _ENC_STEP], min(_ENC_STEP, K - k0))
+              for k0 in range(0, K, _ENC_STEP)]
+    return DiagBlock(giants, babies, None, d, chunks=chunks)
+
+
 def preprocess_matrix(
-    cps: CryptoParams, mat: np.ndarray, nmod: Optional[int] = None
+    cps: CryptoParams,
+    mat: np.ndarray,
+    nmod: Optional[int] = None,
+    cache_file: Optional[str] = None,
+    host_resident: bool = False,
+    disk_cache: bool = False,
 ) -> List[List[DiagBlock]]:
     """Encode the diagonals of every (block-row, block-col) of the
-    plaintext matrix, device-resident."""
+    plaintext matrix: device-resident, or with host_resident as host
+    chunks (spilled beside cache_file as cache_file.w<bi>_<bj>.*) that a
+    product streams to the device.  A device-resident encode loads
+    cache_file when it exists, and writes it there only with disk_cache (a
+    device -> host copy of the whole cache; the spill files serve
+    restarts)."""
     nmod = nmod or mm_nmod(cps)
     S = cps.slots
+    if cache_file and os.path.exists(cache_file) and not host_resident:
+        return _load_diag_cache(cps, cache_file)
     n, m = mat.shape
-    return [
-        [encode_block_diagonals(cps, mat[bi : bi + S, bj : bj + S], nmod)
-         for bj in range(0, m, S)]
-        for bi in range(0, n, S)
-    ]
+    out = []
+    for bi in range(0, n, S):
+        row = []
+        for bj in range(0, m, S):
+            blk = mat[bi : bi + S, bj : bj + S]
+            if host_resident:
+                spill = f"{cache_file}.w{bi}_{bj}" if cache_file else None
+                row.append(host_block_diagonals(cps, blk, spill=spill))
+            else:
+                row.append(encode_block_diagonals(cps, blk, nmod))
+        out.append(row)
+    if cache_file and disk_cache and not host_resident:
+        _save_diag_cache(cache_file, out)
+    return out
+
+
+def _save_diag_cache(path: str, cache):
+    """The JAX package's .npz layout (polys as uint32 residues)."""
+    data = {"nbr": len(cache), "nbc": len(cache[0])}
+    for i, row in enumerate(cache):
+        for j, blk in enumerate(row):
+            data[f"g_{i}_{j}"] = blk.giants
+            data[f"b_{i}_{j}"] = blk.babies
+            data[f"p_{i}_{j}"] = (
+                rns.to_u32(blk.polys) if blk.polys is not None else np.zeros(0)
+            )
+            data[f"d_{i}_{j}"] = blk.d
+    np.savez_compressed(path, **data)
+
+
+def _load_diag_cache(cps: CryptoParams, path: str):
+    """A diagonal cache of either package -> device-resident DiagBlocks."""
+    ctx = cps.ctx
+
+    def block(z, i, j):
+        p = z[f"p_{i}_{j}"]
+        return DiagBlock(z[f"g_{i}_{j}"], z[f"b_{i}_{j}"], ctx.to_dev(p) if p.size else None,
+                         int(z[f"d_{i}_{j}"]))
+
+    with np.load(path) as z:
+        return [[block(z, i, j) for j in range(int(z["nbc"]))] for i in range(int(z["nbr"]))]
 
 
 def preprocess_matrix_host(cps: CryptoParams, mat: np.ndarray):
@@ -341,17 +461,27 @@ class _MatmulPlan:
     giant-aligned chunks (each chunk covers exactly one segment) stacked
     into one MAC launch per block row.  The chunks mirror the reference's
     (budget split, padding to k_pad with the zero row nb_pad, the nsub
-    bound); the launches take their unpadded entries (groups())."""
+    bound); the launches take their unpadded entries (groups()).
 
-    def __init__(self, cps: CryptoParams, cache, nmod: int, row_batch: int = 1):
+    Streaming mode (any block kept as host chunks): each block row's
+    chunks are split into launches of at most group_bytes of diagonal
+    polys, and a launch's polys are materialised on the device only when
+    the product reaches it."""
+
+    def __init__(self, cps: CryptoParams, cache, nmod: int, row_batch: int = 1,
+                 group_bytes: int = STREAM_GROUP_BYTES):
         self.cache = cache
         self.nmod = nmod
         self.row_batch = row_batch
+        self.group_bytes = group_bytes
         self.d = cache[0][0].d
         nbr, nbc = len(cache), len(cache[0])
         self.nbr, self.nbc = nbr, nbc
         self.n = cps.ctx.n
         self.device = cps.ctx.device
+        self._cps = cps
+        self.stream = any(cache[bi][bj].chunks is not None
+                          for bi in range(nbr) for bj in range(nbc))
         self.q_primes = list(cps.params.q_primes[:nmod])
         qmax = max(self.q_primes)
         # a u32 sum of t reduced terms is exact iff t*(q-1) <= 2^32-1
@@ -428,15 +558,24 @@ class _MatmulPlan:
         """One MAC launch from a chunk list: the CSR entry list of its
         accumulator runs (the chunks' unpadded (diagonal, baby) pairs,
         consecutive chunks of one accumulator row forming one run), the
-        diagonal polys the chunks touch, and the runs' chunk offsets."""
-        offs: Dict[int, int] = {}
+        diagonal polys the chunks touch, and the runs' chunk offsets.  In
+        streaming mode the polys are a zero-argument function that
+        materialises just the row range of each block the chunks read."""
+        rng: Dict[int, list] = {}  # per block: [first row, end row] read here
         blks: List[DiagBlock] = []
-        tot = 0
         for c in cs:
-            if id(c["blk"]) not in offs:
-                offs[id(c["blk"])] = tot
-                tot += c["blk"].num_diags
+            r = rng.get(id(c["blk"]))
+            if r is None:
+                rng[id(c["blk"])] = [c["k0"], c["k1"]]
                 blks.append(c["blk"])
+            else:
+                r[0], r[1] = min(r[0], c["k0"]), max(r[1], c["k1"])
+        offs: Dict[int, int] = {}
+        tot = 0
+        for b in blks:
+            lo, hi = rng[id(b)]
+            offs[id(b)] = tot - lo if self.stream else tot
+            tot += hi - lo if self.stream else b.num_diags
         diag = [offs[id(c["blk"])] + np.arange(c["k0"], c["k1"]) for c in cs]
         baby = [c["bidx"][: c["k1"] - c["k0"]] for c in cs]
         sgs = np.array([c["sg"] for c in cs], np.int64)
@@ -453,18 +592,45 @@ class _MatmulPlan:
                                  self.device)
         qmax = max(self.q_primes)
         assert runs.longest <= MAC_MAX_TERMS and runs.longest * (qmax - 1) ** 2 < 2**64
-        polys = (
-            blks[0].polys if len(blks) == 1 else torch.cat([b.polys for b in blks])
-        )
+        if self.stream:
+            cps, nmod = self._cps, self.nmod
+            ranges = [(b,) + tuple(rng[id(b)]) for b in blks]
+
+            def polys():
+                parts = [b.materialize_rows(cps, nmod, a, z) if b.chunks is not None
+                         else b.polys[a:z] for b, a, z in ranges]
+                return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        elif len(blks) == 1:
+            polys = blks[0].polys
+        else:
+            polys = torch.cat([b.polys for b in blks])
         return {"polys": polys, "runs": runs, "chunk_start": chunk_start}
 
     def groups(self) -> list:
-        """Per block row, the list of MAC launches (one per row here)."""
-        if self._groups is None:
-            self._groups = [
-                [self._build_group(cs, len(self.babies[bi]))] if cs else []
-                for bi, cs in enumerate(self.chunks)
-            ]
+        """Per block row, the list of MAC launches: one, or in streaming
+        mode runs of consecutive chunks of at most group_bytes of polys
+        each (a chunk never exceeds it: plan chunks are budget-split)."""
+        if self._groups is not None:
+            return self._groups
+        budget_rows = max(1, self.group_bytes // (self.nmod * self.n * 4))
+        self._groups = []
+        for bi, cs in enumerate(self.chunks):
+            nb = len(self.babies[bi])
+            if not self.stream:
+                self._groups.append([self._build_group(cs, nb)] if cs else [])
+                continue
+            row, sub, used = [], [], 0
+            for c in cs:
+                kr = c["k1"] - c["k0"]
+                if sub and used + kr > budget_rows:
+                    row.append(self._build_group(sub, nb))
+                    sub, used = [], 0
+                sub.append(c)
+                used += kr
+            if sub:
+                row.append(self._build_group(sub, nb))
+            self._groups.append(row)
         return self._groups
 
     def giant_index(self, ctx) -> dict:
@@ -501,16 +667,18 @@ class _MatmulPlan:
 _plan_cache: Dict[int, _MatmulPlan] = {}
 
 
-def _plan_for(cps, cache, nmod, row_batch: int = 1) -> _MatmulPlan:
+def _plan_for(cps, cache, nmod, row_batch: int = 1,
+              group_bytes: int = STREAM_GROUP_BYTES) -> _MatmulPlan:
     plan = _plan_cache.get(id(cache))
     if (
         plan is None
         or plan.cache is not cache
         or plan.nmod != nmod
         or plan.row_batch != row_batch
+        or plan.group_bytes != group_bytes
         or plan.device != cps.ctx.device
     ):
-        plan = _MatmulPlan(cps, cache, nmod, row_batch)
+        plan = _MatmulPlan(cps, cache, nmod, row_batch, group_bytes)
         _plan_cache.clear()  # hold at most one plan
         _plan_cache[id(cache)] = plan
     return plan
@@ -553,10 +721,12 @@ def baby_rotations(cps: CryptoParams, A: B.CipherMatrix, plan: _MatmulPlan, bi: 
 
 
 def mat_mult_cached(
-    cps: CryptoParams, A: B.CipherMatrix, cache: List[List[DiagBlock]]
+    cps: CryptoParams, A: B.CipherMatrix, cache: List[List[DiagBlock]],
+    group_bytes: int = STREAM_GROUP_BYTES,
 ) -> B.CipherMatrix:
     """A (s rows x nBlockRows cts) times the preprocessed matrix ->
-    s x nBlockCols cts, rescaled by one level."""
+    s x nBlockCols cts, rescaled by one level.  group_bytes bounds the
+    diagonal polys materialised per MAC launch of a host-streamed cache."""
     ctx = cps.ctx
     nbr, nbc = len(cache), len(cache[0])
     s = len(A)
@@ -566,11 +736,11 @@ def mat_mult_cached(
     )
     if some is None:
         return [[ctx.zero_ct(mm_nmod(cps)) for _ in range(nbc)] for _ in range(s)]
-    nmod = some.polys.shape[1]
+    nmod = some.polys.shape[1] if some.polys is not None else mm_nmod(cps)
     q = ctx._t(range(nmod))["q"]
     mu = rns.barrett_mu64(ctx.basis, range(nmod), ctx.device)
     n = ctx.n
-    plan = _plan_for(cps, cache, nmod, row_batch=s)
+    plan = _plan_for(cps, cache, nmod, row_batch=s, group_bytes=group_bytes)
     nseg_tot = len(plan.segments)
     groups = plan.groups()
     gi = plan.giant_index(ctx)
@@ -584,22 +754,34 @@ def mat_mult_cached(
             R0, R1 = baby_rotations(cps, A, plan, bi)
         with prof.span("mm_mac"):
             for g in groups[bi]:
-                args = (ACC0, ACC1, R0, R1, g["polys"], g["runs"], q)
+                polys = g["polys"]() if callable(g["polys"]) else g["polys"]
+                args = (ACC0, ACC1, R0, R1, polys, g["runs"], q)
                 if ctx.kernels:
                     mac_dense(*args, mu=mu, logn=ctx.params.logn)
                 else:
                     mac_dense_plain(*args)
+                del polys, args  # streamed polys free before the next group's
         del R0, R1
 
     in_scale = A[0][0].scale * ctx.params.scale
     with prof.span("mm_giant"):
         if gi["gels"]:
             ig0, ig1 = cps.stacked_keys_inv(gi["uniq_gels"], nmod)
-            r0, r1 = ctx.rotate_grouped_b(
-                ACC0[gi["rot"]], ACC1[gi["rot"]], ctx.perms_for(gi["gels"]),
-                ig0[gi["gsel"]], ig1[gi["gsel"]], nmod,
-            )
-            c0f, c1f = _combine_rotated(r0, r1, gi["bj"], q, nbc)
+            nrot = len(gi["gels"])
+            step = max(1, GIANT_BATCH_BYTES // (s * nmod * n * 4))
+            c0f = c1f = None
+            for k0 in range(0, nrot, step):
+                sl = slice(k0, min(k0 + step, nrot))
+                r0, r1 = ctx.rotate_grouped_b(
+                    ACC0[gi["rot"][sl]], ACC1[gi["rot"][sl]], ctx.perms_for(gi["gels"][sl]),
+                    ig0[gi["gsel"][sl]], ig1[gi["gsel"][sl]], nmod,
+                )
+                p0, p1 = _combine_rotated(r0, r1, gi["bj"][sl], q, nbc)
+                del r0, r1
+                if c0f is None:
+                    c0f, c1f = p0, p1
+                else:
+                    c0f, c1f = add_mod(c0f, p0, q), add_mod(c1f, p1, q)
         else:
             c0f = torch.zeros((nbc, s, nmod, n), dtype=torch.int32, device=ctx.device)
             c1f = torch.zeros_like(c0f)
@@ -719,3 +901,68 @@ def _match_vec(cps, X, ref):
     """X dropped, ciphertext by ciphertext, to the lower level of itself and
     ref."""
     return [cps.ctx.drop_to(x, min(x.nmod, r.nmod)) for x, r in zip(X, ref)]
+
+
+# ---------------------------------------------------------------------------
+# Lazily normalised QX / QX^T (the Go sfgwas's gwas/matmult.go:27-116)
+
+
+def qx_lazy_norm_stream(
+    cps: CryptoParams,
+    mpc,
+    Q: B.CipherMatrix,
+    xt_cache: List[List[DiagBlock]],
+    x_mean: B.CipherVector,
+    x_stdinv: B.CipherVector,
+    num_ind: int,
+    post_scale: float = 1.0,
+    group_bytes: int = STREAM_GROUP_BYTES,
+) -> B.CipherMatrix:
+    """Q (kp x nsnp) times X (nsnp x nind) with lazy normalisation:
+    [(Q*S)*X - ((Q*S)*m) 1^T] * post_scale.  The product band leaves no
+    level for the trailing-slot mask, so the result is refreshed once
+    (one collective round for every data party's rows) and masked at the
+    top."""
+    if mpc.pid == 0:
+        return None
+    ctx, slots = cps.ctx, cps.slots
+    QS = [B.cmult(cps, Q[i], x_stdinv) for i in range(len(Q))]
+    out = mat_mult_cached(cps, QS, xt_cache, group_bytes)
+    for i in range(len(QS)):
+        qsm = B.inner_prod(cps, QS[i], x_mean)  # the value in every slot
+        nm = min(out[i][0].nmod, qsm.nmod)
+        out[i] = [ctx.sub(ctx.drop_to(ct, nm), ctx.drop_to(qsm, nm)) for ct in out[i]]
+    out = mhe.bootstrap_mat_all(mpc.net, cps, out)
+    for i in range(len(out)):
+        for j in range(len(out[i])):
+            n_keep = slots if j < len(out[i]) - 1 else ((num_ind - 1) % slots) + 1
+            out[i][j] = B.mask_trunc(cps, out[i][j], n_keep, post_scale)
+    return out
+
+
+def qxt_lazy_norm_stream(
+    cps: CryptoParams,
+    mpc,
+    Q: B.CipherMatrix,
+    x_cache: List[List[DiagBlock]],
+    x_mean: B.CipherVector,
+    x_stdinv: B.CipherVector,
+    post_scale: float = 1.0,
+    group_bytes: int = STREAM_GROUP_BYTES,
+) -> B.CipherMatrix:
+    """Q (kp x nind) times X^T (nind x nsnp) with lazy normalisation:
+    ((Q X^T) - (Q 1) m^T) * S * post_scale.  One refresh after the mean
+    correction; the stdinv multiply and the constant share one double
+    rescale."""
+    if mpc.pid == 0:
+        return None
+    ctx = cps.ctx
+    out = mat_mult_cached(cps, Q, x_cache, group_bytes)
+    for i in range(len(out)):
+        q1m = B.cmult_scalar(cps, x_mean, B.inner_sum_all(cps, Q[i]))
+        nm = min(out[i][0].nmod, q1m[0].nmod)
+        out[i] = [ctx.sub(ctx.drop_to(o, nm), ctx.drop_to(m, nm)) for o, m in zip(out[i], q1m)]
+    out = mhe.bootstrap_mat_all(mpc.net, cps, out)
+    for i in range(len(out)):
+        out[i] = B.cmult_with_const(cps, out[i], x_stdinv, post_scale)
+    return out

@@ -5,9 +5,10 @@ Phase1/2/3, SyncAndTerminate).
 
 Ported: the in-process transport and the TCP mesh, both genotype input
 formats, the three QC routes (skip, cached filter, precomputed counts or the
-scan), phase 2 with skip_pca and the linear phase 3.  Each part not ported
-yet raises NotImplementedError naming the ROADMAP item that brings it: PCA
-(A9), logistic association (A10) and within-party sharding (A11).
+scan), phase 2 (PCA, its cached PCs, or skip_pca) and the linear phase 3.
+Each part not ported yet raises NotImplementedError naming the ROADMAP item
+that brings it: logistic association (A10) and within-party sharding
+(A11); net_qr names A9c for the Householder QR.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import List
 
 import numpy as np
 
+from ..crypto import basics as B
 from ..mpc import mhe
 from ..mpc.mpc import MPC
 from ..mpc.prg import Random
@@ -27,7 +29,9 @@ from ..utils.config import Config
 from ..utils.log import log
 from . import assoc as assoc_mod
 from . import filestream as fs
+from . import pca as pca_mod
 from . import qc as qc_mod
+from . import utilities as U
 from .params import FilterParams, GWASParams
 
 
@@ -337,14 +341,81 @@ class ProtocolInfo:
     # ------------------------------------------------------------- phase 2
 
     def phase2(self):
+        cfg = self.config
+        gp = self.gwas_params
         self.net.reset_log()
-        if not self.config.skip_pca:
-            raise NotImplementedError(
-                "PCA (phase 2 without skip_pca, use_cached_pca included) is not ported yet "
-                "(ROADMAP A9); set skip_pca = true"
-            )
-        self.gwas_params.set_num_pc(0)
-        return None
+        if cfg.skip_pca:
+            gp.set_num_pc(0)
+            return None
+
+        pid = self.pid
+        # the decrypted PCs (use_cached_pca, gwas/gwas.go:333-360); the
+        # dealer holds none, and a marker file keeps it in lockstep
+        pca_cache = self.cache_path("Qpc.txt" if pid > 0 else "Qpc.done")
+        if cfg.use_cached_pca and os.path.exists(pca_cache):
+            if pid > 0:
+                mat = U.load_matrix_float(pca_cache)
+                return [B.encrypt_float_vector(self.cps, row) for row in mat]
+            return [None] * cfg.num_pcs_to_remove
+        # LD pruning by position (snpDistanceFiltering, gwas/gwas.go:609-626)
+        if pid > 0:
+            keep = gp.snp_filt if gp.snp_filt is not None else np.ones(gp.num_snps, bool)
+            n_pca, pca_filt = snp_distance_filtering(self.pos, keep, gp.min_snp_dist)
+            if pid == self.mpc.hub_pid:
+                self.net.send_int(n_pca, 0)
+        else:
+            n_pca = self.net.recv_int(self.mpc.hub_pid)
+            pca_filt = None
+        gp.set_num_snps_pca(n_pca)
+
+        X = None
+        if pid > 0:
+            # the kept individuals' pruned columns, filled block by block
+            # straight from the genotype files (missing calls read as 0)
+            rf = self.geno_blocks[0].row_filt
+            X = np.empty((self.geno_blocks[0].num_rows_to_keep(), n_pca), np.int8)
+            shift = col = 0
+            for b, bs in zip(self.geno_blocks, self.geno_block_sizes):
+                sub_filt = pca_filt[shift : shift + bs]
+                nc = int(sub_filt.sum())
+                full = np.memmap(b.filename, dtype=np.int8, mode="r")[
+                    : b.num_rows * b.num_cols
+                ].reshape(b.num_rows, b.num_cols)
+                sel = (full if rf is None else full[rf])[:, sub_filt]
+                X[:, col : col + nc] = np.where(sel < 0, 0, sel)
+                col += nc
+                shift += bs
+            assert col == n_pca, (col, n_pca)
+
+        self.mpc.assert_sync()
+        qpc = pca_mod.distributed_pca(
+            self.mpc,
+            self.cps,
+            X,
+            n_pca,
+            [0] + list(gp.num_filt_inds[1:]),
+            cfg.num_pcs_to_remove,
+            cfg.num_oversampling,
+            cfg.num_power_iters,
+            cache_prefix=self.cache_path("geno_pca_diag"),
+            restart_iter=cfg.restart_pca_from_iter,
+            skip_power_iter=cfg.skip_power_iter,
+            debug=cfg.debug,
+            iter_per_eigenval=cfg.iter_per_eigenval,
+            qr_method=cfg.qr_method,
+        )
+        if pid > 0:
+            for p in range(1, self.net.nparty):
+                U.save_matrix_collective(self.net, self.cps, qpc, gp.num_filt_inds[p], p,
+                                         self.cache_path("Qpc.txt"))
+        else:
+            with open(self.cache_path("Qpc.done"), "w") as f:
+                f.write("1\n")
+        # end-of-phase barrier (gwas/pca.go:492): the dealer does not race
+        # into phase 3 while the data parties are still in PCA
+        self.mpc.assert_sync()
+        self.net.print_log()
+        return qpc
 
     # ------------------------------------------------------------- phase 3
 

@@ -3,8 +3,8 @@
 (net_cholqr_enc) and the method dispatch (net_qr).
 
 The column-by-column Householder path (net_dqr_enc, its party-0 side and
-net_dqr_plain) needs the encrypted A A^T B product (matmult.dc_matmul_aat_b)
-and is not ported yet: ROADMAP A9, with PCA.
+net_dqr_plain), which runs only when a config sets qr_method =
+"householder", is not ported yet: ROADMAP A9c.
 """
 
 from __future__ import annotations
@@ -167,8 +167,8 @@ def net_qr(
     net_dqr_enc, which the port does not have yet."""
     if method == "householder":
         raise NotImplementedError(
-            "qr_method 'householder' (net_dqr_enc) needs matmult.dc_matmul_aat_b; "
-            "it is ported with PCA (ROADMAP A9)"
+            "qr_method 'householder' (net_dqr_enc) is not ported yet (ROADMAP A9c); "
+            "use the default 'cholqr2'"
         )
     if method == "cholqr3":
         return net_cholqr_enc(cps, mpc, A, nrows_all, passes=3)

@@ -1,8 +1,12 @@
 """Secret-shared linear algebra (counterpart of sfgwas_tpu/mpc/linalg.py):
-the Cholesky whitener of a shared Gram matrix that the CholeskyQR of the
-covariate basis runs, with the helpers it calls.  Matrices are digit arrays
-[r, c, nlimb]; the routines run on small (k x k) matrices, so the round
-count dominates.
+the Householder vector, the square QR, the symmetric tridiagonalisation,
+the shifted-QR eigendecomposition and the oblivious row sort that PCA runs
+on its kp x kp Gram matrix (the Go sfgwas's mpc/mpc.go:2276-2636), and the
+Cholesky whitener of a shared Gram matrix that the CholeskyQR of the
+covariate basis runs.  Matrices are digit arrays [r, c, nlimb]; the
+routines run on small (k x k) matrices, so the round count dominates, and
+they keep the Go sfgwas's structure (its field comparison path inside the
+eigensolver, mpc/mpc.go:2310, 2804, included).
 """
 
 from __future__ import annotations
@@ -19,6 +23,220 @@ def ss_mult_vec_scalar(mpc: MPC, d, scalar):
     sr, sm = mpc.beaver_partition(scalar)
     out = mpc.beaver_mult_elem(dr, dm, sr[None], sm[None])
     return mpc.beaver_reconstruct(out)
+
+
+def _bc(ring, const_digits, shape):
+    return np.broadcast_to(np.asarray(const_digits), tuple(shape) + (ring.nlimb,))
+
+
+def householder(mpc: MPC, x):
+    """Householder vector of a shared vector (mpc/mpc.go:2276-2324)."""
+    ring = mpc.ring
+    kb, fb = mpc.data_bits, mpc.frac_bits
+    is_binary = mpc.boolean_shares
+
+    xr, xm = mpc.beaver_partition(x)
+    z = mpc.beaver_mult_elem(xr, xm, xr, xm)
+    xdot = ring.sum(z, axis=0)[None]  # [1, L]
+    xdot = mpc.beaver_reconstruct(xdot)
+    xdot = mpc.trunc(xdot, kb, fb)
+
+    xnorm, _ = mpc.sqrt_and_sqrt_inverse(xdot, is_binary)
+
+    x1sign = mpc.is_positive(x[0:1], is_binary)
+    x1sign = ring.mul_int(x1sign, 2)
+    if mpc.pid == mpc.hub_pid:
+        x1sign = ring.sub(x1sign, _bc(ring, ring.const_np(1), (1,)))
+
+    shift = mpc.ss_mult_elem(xnorm, x1sign)  # [1, L]
+
+    sr, sm = mpc.beaver_partition(shift)
+    dot_shift = mpc.beaver_mult_elem(xr[0:1], xm[0:1], sr, sm)
+    dot_shift = mpc.beaver_reconstruct(dot_shift)
+    dot_shift = mpc.trunc(dot_shift, kb, fb)
+
+    vdot = ring.mul_int(ring.add(xdot, dot_shift), 2)
+
+    _, vnorm_inv = mpc.sqrt_and_sqrt_inverse(vdot, False)
+
+    invr, invm = mpc.beaver_partition(vnorm_inv)
+    vr = R.aset(xr, 0, ring.add(xr[0], sr[0]))
+    vm = R.aset(xm, 0, ring.add(xm[0], sm[0]))
+    v = mpc.beaver_mult_elem(vr, vm, invr, invm)
+    v = mpc.beaver_reconstruct(v)
+    return mpc.trunc(v, kb, fb)
+
+
+def qr_fact_square(mpc: MPC, A):
+    """QR of a square shared matrix by repeated Householder reflections of
+    its rows (mpc/mpc.go:2326-2409): returns (Q, R) with A = R Q, R lower
+    triangular."""
+    ring = mpc.ring
+    kb, fb = mpc.data_bits, mpc.frac_bits
+    pid = mpc.pid
+    n = A.shape[0]
+    one = ring.const_np(1 << fb)
+
+    R_ = ring.zeros((n, n))
+    Q = None
+    Ap = A
+
+    for i in range(n - 1):
+        v = householder(mpc, Ap[0])[None]  # [1, m]
+        vt = np.swapaxes(v, 0, 1)  # [m, 1]
+
+        P = mpc.ss_mult_mat(vt, v)
+        P = mpc.trunc(P, kb, fb)
+        if pid > 0:
+            P = ring.mul_int(P, -2)
+            if pid == mpc.hub_pid:
+                m = P.shape[0]
+                diag = np.arange(m)
+                P = R.aset(P, (diag, diag), ring.add(P[diag, diag], _bc(ring, one, (m,))))
+
+        if i == 0:
+            Q = P
+            B = mpc.ss_mult_mat(Ap, P)
+            B = mpc.trunc(B, kb, fb)
+        else:
+            Qsub = Q[i:] if pid > 0 else ring.zeros((n - i, n))
+            r0 = mpc.ss_mult_mat(P, Qsub)
+            r1 = mpc.ss_mult_mat(Ap, P)
+            r0 = mpc.trunc(r0, kb, fb)
+            r1 = mpc.trunc(r1, kb, fb)
+            if pid > 0:
+                Q = R.aset(Q, slice(i, None), r0)
+            B = r1
+
+        if pid > 0:
+            R_ = R.aset(R_, (slice(i, n), i), B[: n - i, 0])
+            if i == n - 2:
+                R_ = R.aset(R_, (n - 1, n - 1), B[1, 1])
+
+        Ap = B[1:, 1:] if pid > 0 else ring.zeros((n - i - 1, n - i - 1))
+    return Q, R_
+
+
+def tridiag(mpc: MPC, A):
+    """Symmetric tridiagonalisation (mpc/mpc.go:2411-2513): returns (T, Q)."""
+    ring = mpc.ring
+    kb, fb = mpc.data_bits, mpc.frac_bits
+    pid = mpc.pid
+    n = A.shape[0]
+    one = ring.const_np(1 << fb)
+
+    T = ring.zeros((n, n))
+    Q = ring.zeros((n, n))
+    if pid == mpc.hub_pid:
+        diag = np.arange(n)
+        Q = R.aset(Q, (diag, diag), _bc(ring, one, (n,)))
+
+    Ap = A
+    for i in range(n - 2):
+        m = Ap.shape[0]
+        x = Ap[0, 1:] if pid > 0 else ring.zeros((m - 1,))
+
+        v = householder(mpc, x)[None]  # [1, m-1]
+        vt = np.swapaxes(v, 0, 1)
+        vv = mpc.ss_mult_mat(vt, v)
+        vv = mpc.trunc(vv, kb, fb)
+
+        P = ring.zeros((m, m))
+        if pid > 0:
+            body = ring.mul_int(vv, -2)
+            if pid == mpc.hub_pid:
+                dg = np.arange(m - 1)
+                body = R.aset(body, (dg, dg), ring.add(body[dg, dg], _bc(ring, one, (m - 1,))))
+                P = R.aset(P, (0, 0), one)
+            P = R.aset(P, (slice(1, None), slice(1, None)), body)
+
+        PAp = mpc.ss_mult_mat(P, Ap)
+        PAp = mpc.trunc(PAp, kb, fb)
+        B = mpc.ss_mult_mat(PAp, P)
+        B = mpc.trunc(B, kb, fb)
+
+        Qsub = Q[:, i:] if pid > 0 else ring.zeros((n, n - i))
+        Qsub = mpc.ss_mult_mat(Qsub, P)
+        Qsub = mpc.trunc(Qsub, kb, fb)
+        if pid > 0:
+            Q = R.aset(Q, (slice(None), slice(i, None)), Qsub)
+
+        if pid > 0:
+            T = R.aset(T, (i, i), B[0, 0])
+            T = R.aset(T, (i + 1, i), B[1, 0])
+            T = R.aset(T, (i, i + 1), B[0, 1])
+            if i == n - 3:
+                T = R.aset(T, (i + 1, i + 1), B[1, 1])
+                T = R.aset(T, (i + 1, i + 2), B[1, 2])
+                T = R.aset(T, (i + 2, i + 1), B[2, 1])
+                T = R.aset(T, (i + 2, i + 2), B[2, 2])
+
+        Ap = B[1:, 1:] if pid > 0 else ring.zeros((m - 1, m - 1))
+    return T, Q
+
+
+def eigen_decomp(mpc: MPC, A, iter_per_eval: int = 5):
+    """Shifted-QR eigendecomposition with deflation (mpc/mpc.go:2554-2636).
+    Returns (V [n, n], L [n]): the rows of V are eigenvectors."""
+    ring = mpc.ring
+    kb, fb = mpc.data_bits, mpc.frac_bits
+    pid = mpc.pid
+    n = A.shape[0]
+    Lout = ring.zeros((n,))
+
+    Ap, Q = tridiag(mpc, A)
+    V = np.swapaxes(Q, 0, 1) if pid != 0 else ring.zeros((n, n))
+
+    for i in range(n - 1, 0, -1):
+        for _ in range(iter_per_eval):
+            shift = Ap[i, i]
+            if pid > 0:
+                diag = np.arange(Ap.shape[0])
+                Ap = R.aset(Ap, (diag, diag), ring.sub(Ap[diag, diag], shift[None]))
+
+            Qi, Ri = qr_fact_square(mpc, Ap)
+            Ap = mpc.ss_mult_mat(Qi, Ri)
+            Ap = mpc.trunc(Ap, kb, fb)
+
+            if pid > 0:
+                diag = np.arange(Ap.shape[0])
+                Ap = R.aset(Ap, (diag, diag), ring.add(Ap[diag, diag], shift[None]))
+
+            Vsub = V[: i + 1] if pid > 0 else ring.zeros((i + 1, n))
+            Vsub = mpc.ss_mult_mat(Qi, Vsub)
+            Vsub = mpc.trunc(Vsub, kb, fb)
+            if pid > 0:
+                V = R.aset(V, slice(None, i + 1), Vsub)
+
+        Lout = R.aset(Lout, i, Ap[i, i])
+        if i == 1:
+            Lout = R.aset(Lout, 0, Ap[0, 0])
+        Ap = Ap[:i, :i]
+    return V, Lout
+
+
+def swap(mpc: MPC, v1, v2, is_flip):
+    """Oblivious swap (mpc/mpc.go:2515-2532)."""
+    ring = mpc.ring
+    d = ring.sub(v2, v1)
+    m = ss_mult_vec_scalar(mpc, d, is_flip)
+    return ring.add(v1, m), ring.sub(v2, m)
+
+
+def sort_rows_descend(mpc: MPC, A, w):
+    """Oblivious bubble sort of the rows of A by w, descending
+    (mpc/mpc.go:2534-2552)."""
+    ring = mpc.ring
+    n = A.shape[0]
+    for i in range(n - 1):
+        for j in range(n - 1, i, -1):
+            diff = ring.sub(w[j], w[j - 1])[None]
+            is_flip = mpc.is_positive(diff, mpc.boolean_shares)[0]
+            a_j, a_jm1 = swap(mpc, A[j], A[j - 1], is_flip)
+            A = R.aset(R.aset(A, j, a_j), j - 1, a_jm1)
+            w_j, w_jm1 = swap(mpc, w[j][None], w[j - 1][None], is_flip)
+            w = R.aset(R.aset(w, j, w_j[0]), j - 1, w_jm1[0])
+    return A, w
 
 
 def chol_whiten(mpc: MPC, G):

@@ -20,6 +20,7 @@ from sfgwas_tpu.utils import config as RCFG
 from sfgwas_tpu.utils.watchdog import MemoryWatchdog as RefWatchdog
 from sfgwas_tpu_torch import cli
 from sfgwas_tpu_torch.gwas import protocol as PP
+from sfgwas_tpu_torch.gwas import qrfact as PQR
 from sfgwas_tpu_torch.parallel.transport import ClusterClosed, LocalCluster
 from sfgwas_tpu_torch.utils import config as PCFG
 from sfgwas_tpu_torch.utils.watchdog import MemoryWatchdog
@@ -134,9 +135,15 @@ def test_shard_matmult_names_a11(tmp_path):
 
 @pytest.mark.parametrize("fields", [{}, {"use_cached_pca": True}])
 def test_pca_names_a9(tmp_path, fields):
-    prot = _dealer(_cfg(tmp_path, skip_pca=False, **fields))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9"):
-        prot.phase2()
+    """PCA (A9) is ported: with use_cached_pca the dealer resumes from its
+    Qpc.done marker alone, and what is left of A9, the Householder QR that
+    qr_method = "householder" selects, raises naming A9c."""
+    prot = _dealer(_cfg(tmp_path, skip_pca=False, qr_method="householder", **fields))
+    if fields:
+        Path(prot.cache_path("Qpc.done")).write_text("1\n")
+        assert prot.phase2() == [None] * prot.config.num_pcs_to_remove
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9c"):
+        PQR.net_qr(None, prot.mpc, [None], [0, 4, 4], method=prot.config.qr_method)
 
 
 def test_skip_pca_phase2(tmp_path):
