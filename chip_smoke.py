@@ -102,10 +102,10 @@ Phases (any failed check raises; the exit code is then nonzero):
     sfgwas_tpu/gwas/protocol.py driven by hand: three parties as threads on
     the card (run_parties as in phase 7) under collective keys from
     collective_init with the default shift set; each data party holds 1000
-    individuals, 5 covariates (phase 8's scales) and 2 blocks of 4546 SNPs
+    individuals, 5 covariates (phase 8's scales) and 1 block of 4546 SNPs
     (genotype files with about 1% missing calls, MAF uniform in [0.02,
     0.5], and the plink2 count file, all from --seed; the example's SNP
-    axis of 99,336 cut to 9,092), and a phenotype with 5 planted effects.
+    axis of 99,336 cut to 4,546), and a phenotype with 5 planted effects.
     QC from the counts (config/configGlobal.toml's thresholds), the column
     filters on the blocks' streams with missing read as 0, then
     get_association_stats twice: traced under torch.profiler over all
@@ -130,7 +130,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     use_cached_combined_q, skip_pca) and paths in {pid} form, on data from
     --seed in a temporary directory removed at the end: per data party
     1000 individuals, 5 covariates and the first 2 of the config's 22
-    blocks, 9,092 SNPs (phase 9's generators; phase 11 runs 8).  Run
+    blocks, 9,092 SNPs (phase 9's generators; phase 11 runs 2).  Run
     1 is fresh, with every launch count set to 0 before it and read after
     it: all six kernels launched, K2 once a block at each data party and
     held bit for bit against its plain version on the same inputs right
@@ -145,7 +145,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     host RSS are recorded; then K2 is timed at its first launch and K1,
     K3, K4, K5 and K6 are held against their plain versions at every shape
     of run 1 that no earlier phase checked, recorded at their wrappers;
-11. the same study at 8 of the config's 22 blocks (36,368 SNPs) as three
+11. the same study at 2 of the config's 22 blocks (9,092 SNPs) as three
     party processes over loopback TCP: this script started
     again once a party (--party-run, PID in the environment, after this
     process built the six kernels, the ring engine and the transport
@@ -154,7 +154,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     and its own local config and no --platform, with phase 10's hooks and
     cpu_count // 3 OpenMP threads.  Run 1 is fresh: every party's launch
     counts set to 0 before and read after its run, all six kernels
-    launched, K2 8 times at each data party and held bit for bit against
+    launched, K2 twice at each data party and held bit for bit against
     its plain version right after each launch in the process that launched
     it, the filter and the statistics held to the oracles; then, one party
     at a time, K1 and K3-K6 against their plain versions at every shape of
@@ -172,7 +172,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     with 10 oversampling columns, cholqr2, 5 shifted-QR iterations an
     eigenvalue, snp_dist_thres 100,000), per data party 1000 individuals
     and 5 covariates, the first 3 of the config's 22 blocks (13,638 SNPs)
-    and 2 of its 20 power iterations.  The genotypes come from three
+    and 1 of its 20 power iterations.  The genotypes come from three
     subpopulations (Balding-Nichols allele frequencies at F_ST = 0.05
     around phase 9's MAFs, each individual's subpopulation drawn
     uniformly) and the phenotype has 5 planted effects and a shift per
@@ -196,7 +196,31 @@ Phases (any failed check raises; the exit code is then nonzero):
     iteration's qxt, aggregation, bootstrap, qx and QR, the Gram, the
     eigendecomposition, the sort, the subspace), the bytes of host chunks
     copied to the card, peak device memory and host RSS;
-13. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+13. the logistic study through the port's CLI, in this process as phase 10
+    runs its study: config/configGlobalLogistic.toml's flags (PN14QP438, its
+    QC thresholds and count route, use_cached_keys, skip_pca, use_logistic
+    with the degree-62 sigmoid on [-10, 10] and inverse_mat_scale 10,000),
+    per data party 1000 individuals and 5 covariates, the first 2 of the
+    config's 22 blocks (9,092 SNPs) and 3 of its 15 Newton epochs, phase
+    9's genotype and count generators with a binary phenotype from a
+    logistic model over the covariates and 3 planted SNPs.  One fresh run
+    (the logistic phase keeps no cache of its own): launch counts set to 0
+    before it and read after it, all six kernels launched, K2 4 times a
+    block at each data party (g^T W z B^T at 6 rows, g^T W g on the squared
+    block, g^T y~ and g^T o at 1 row) and held bit for bit against its
+    plain version right after each launch, party 1's spans synchronized on
+    the card.  Checks: the filter equal to the QC oracle; the statistics
+    finite, within 2e-2 (corr > 0.999) of an exact-sigmoid oracle of the
+    same 3 Newton epochs from zero weights and correlated above 0.99 with
+    the converged (50-epoch) one.  Then K2 is timed at its first launch at
+    each row count and K1, K3, K4, K5 and K6 are held against their plain
+    versions at every shape no earlier phase checked.  Recorded: the
+    command seconds, party 1's protocol line, its spans per Newton epoch
+    (lr_epoch: lr_sigmoid, lr_hess_he, lr_inv_ss, lr_step), of the score
+    test's preparation (score_prep) and per block (score_block:
+    score_encode, score_mm, score_ss), the launch counts, peak device
+    memory and host RSS;
+14. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
@@ -209,8 +233,9 @@ chiprun_out/assoc_profile.txt, the SASS listings to
 chiprun_out/sass_main_*.txt, party 1's assoc.txt of phase
 10's runs to chiprun_out/assoc_fresh.txt and chiprun_out/assoc_resumed.txt
 and of phase 11's to chiprun_out/assoc_tcp_{fresh,resumed}.txt and of
-phase 12's to chiprun_out/assoc_pca_{fresh,resumed}.txt, and the logs of
-phase 11's parties to chiprun_out/tcp_{fresh,resumed}_party*.log.
+phase 12's to chiprun_out/assoc_pca_{fresh,resumed}.txt and of phase 13's
+to chiprun_out/assoc_logistic.txt, and the logs of phase 11's parties to
+chiprun_out/tcp_{fresh,resumed}_party*.log.
 
 --pca-probe runs only pca_probe: phase 12's fresh study with collective
 decrypts around PCA's steps, up to the eigensolve (the in-vivo bisect of a
@@ -1537,7 +1562,7 @@ ASSOC_PATH = ("ntt_fwd", "ntt_inv", "mac_dense", "ks_digit_product", "uniform_mo
 ASSOC_FILTER = (0.1, 28.374, 0.1, 0.05, 0.2, 0.5)
 ASSOC_STAT_TOL = 2e-2  # tests/test_e2e_gwas.py:159-162
 ASSOC_MIN_CORR = 0.999
-# the example's SNP axis (99,336 SNPs in 22 blocks), cut to 2 of its blocks
+# the example's SNP axis (99,336 SNPs in 22 blocks), cut to 1 of its blocks in phase 9
 EXAMPLE_SNPS = 99_336
 
 
@@ -1820,7 +1845,7 @@ def assoc_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     from sfgwas_tpu_torch.gwas import matmult as MM
 
     params = get_params("PN14QP438")
-    n_loc, m_block, nblocks = 1000, 4546, 2
+    n_loc, m_block, nblocks = 1000, 4546, 1
     t0 = time.time()
     res, state, data = _assoc_parties(torch, seed, out_dir, n_loc, m_block, nblocks)
     t_calls = time.time() - t0
@@ -1891,9 +1916,9 @@ def assoc_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
 
 # config/configGlobal.toml's SNP axis: 100,000 SNPs in 22 blocks, 21 of 4,546
 STUDY_BLOCKS = [4546] * 21 + [4534]
-# phase 10's cut of that axis: its first 2 blocks; phase 11's: its first 8
+# phase 10's and phase 11's cut of that axis: its first 2 blocks
 STUDY_LOCAL_BLOCKS = STUDY_BLOCKS[:2]
-TCP_BLOCKS = STUDY_BLOCKS[:8]
+TCP_BLOCKS = STUDY_BLOCKS[:2]
 STUDY_RESUME_TOL = 2e-3  # tests/test_e2e_gwas.py:222
 # the configuration's flags: the preset, the thresholds, the QC route and the caches
 STUDY_CONFIG = "config/configGlobalSkipPCA.toml"
@@ -1964,14 +1989,15 @@ def _protocol_times(lines, pid: int) -> dict:
 
 
 def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, overrides: dict,
-                 pca_snps=None) -> tuple:
+                 pca_snps=None, logistic: bool = False) -> tuple:
     """The study's files from the seed under root: per data party the
     genotype blocks geno.{i}.bin, blocksizes.txt, pheno.txt, cov.txt,
     pos.txt and plink2's count file (phase 9's generators over the whole
     SNP axis, 1,000 bp apart; with pca_snps, phase 12's: _pca_data, and
-    positions that LD pruning thins to pca_snps), and a global config of
-    cfg_src's flags (with overrides) and the paths in {pid} form.  Returns
-    (the data, the config's path)."""
+    positions that LD pruning thins to pca_snps; with logistic, phase 13's
+    binary phenotype: _logistic_data), and a global config of cfg_src's
+    flags (with overrides) and the paths in {pid} form.  Returns (the data,
+    the config's path)."""
     import tomllib
 
     from sfgwas_tpu_torch.gwas import filestream as FS
@@ -1980,6 +2006,9 @@ def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, override
     if pca_snps:
         data = _pca_data(seed, n_loc, m)
         pos = _pca_positions(assoc_qc_oracle(data, ASSOC_FILTER, n_loc), pca_snps)
+    elif logistic:
+        data = _logistic_data(seed, n_loc, m)
+        pos = np.arange(m) * 1000
     else:
         data = _assoc_data(seed, n_loc, m, 1)
         pos = np.arange(m) * 1000
@@ -2016,15 +2045,17 @@ def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, override
     return data, path
 
 
-def _study_hooks(torch, k2_inline: bool, keep_first: bool = True):
+def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: bool = False):
     """Wrappers for one CLI run: each party's collective_init timed with its
     bundle's keys_from_cache, each key-directory write timed, party 1's
-    spans (prof on), the calls of distributed_pca and the host chunks a
-    host-streamed diagonal cache materialised on the device (calls, bytes
-    of hi and lo copied), and with k2_inline every K2 launch held against
-    its plain version on the same inputs right after it (bit equality;
-    with keep_first, the first launch's inputs are kept for the timed
-    record)."""
+    spans (prof on: the totals and each span as it ended), the calls of
+    distributed_pca and the host chunks a host-streamed diagonal cache
+    materialised on the device (calls, bytes of hi and lo copied), and with
+    k2_inline every K2 launch held against its plain version on the same
+    inputs right after it (bit equality, launches counted per row count of
+    the product; with keep_first, the first launch's inputs are kept for the
+    timed record, with keep_rows too the first launch's at each row
+    count)."""
     from sfgwas_tpu_torch.gwas import matmult as MM
     from sfgwas_tpu_torch.gwas import pca as PP
     from sfgwas_tpu_torch.gwas import protocol as GP
@@ -2034,7 +2065,8 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True):
     hooks = _Patches()
     got = {"init": {}, "save_s": [], "spans": None, "pca_calls": 0,
            "streamed": {"calls": 0, "rows": 0, "h2d_bytes": 0},
-           "k2": {"launches": 0, "equal": 0, "check_s": 0.0, "first": None}}
+           "k2": {"launches": 0, "equal": 0, "check_s": 0.0, "first": None, "by_rows": {},
+                  "launches_by_rows": collections.Counter()}}
     lock = threading.Lock()
 
     def pca(real):
@@ -2084,6 +2116,7 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True):
             finally:
                 if self.pid == 1:
                     got["spans"] = {k: v[0] for k, v in prof.totals().items()}
+                    got["events"] = prof.events()
         return wrapped
 
     def mac(real):
@@ -2099,8 +2132,13 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True):
                 k2["launches"] += 1
                 k2["equal"] += eq
                 k2["check_s"] += time.time() - t0
+                rows = int(R0.shape[1])
+                k2["launches_by_rows"][rows] += 1
+                kept = (R0, R1, polys, runs, q, mu, logn, ACC0.shape[0])
                 if keep_first and k2["first"] is None:
-                    k2["first"] = (R0, R1, polys, runs, q, mu, logn, ACC0.shape[0])
+                    k2["first"] = kept
+                if keep_rows and rows not in k2["by_rows"]:
+                    k2["by_rows"][rows] = kept
             return out
         return wrapped
 
@@ -2115,7 +2153,8 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True):
 
 
 def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
-                platform=None, overrides=None, pca_snps=None, resume_flags=None):
+                platform=None, overrides=None, pca_snps=None, resume_flags=None,
+                logistic: bool = False):
     """The study's two CLI runs (cli.main with --local-sim 3, and with
     --platform only where given; platform=None is the card): the files and
     config from the seed in a temporary directory (removed at the end),
@@ -2126,8 +2165,10 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
     run is copied to out_dir.  overrides replaces config fields (a CPU
     rehearsal's preset and sizes).  pca_snps makes phase 12's study (its
     data, LD pruning to about that many SNPs, the spans synchronized on
-    the card, each run's decrypted PCs read back).  Returns (the data, each
-    run's record)."""
+    the card, each run's decrypted PCs read back); logistic makes phase
+    13's (its data, one fresh run and no resumed one: the logistic phase
+    keeps no cache of its own; the spans synchronized on the card).
+    Returns (the data, each run's record)."""
     import shutil
     import tempfile
 
@@ -2136,12 +2177,13 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
     from sfgwas_tpu_torch.utils import prof
 
     cuda = platform is None
-    tag = "pca_" if pca_snps else ""
+    tag = "pca_" if pca_snps else "logistic_" if logistic else ""
     tmp = tempfile.mkdtemp(prefix="sfgwas_study_")
     runs: dict = {}
     try:
         t0 = time.time()
-        data, cfg = _study_files(tmp, seed, n_loc, sizes, cfg_src, overrides or {}, pca_snps)
+        data, cfg = _study_files(tmp, seed, n_loc, sizes, cfg_src, overrides or {}, pca_snps,
+                                 logistic)
         data_s = time.time() - t0
         cfgs = {"fresh": cfg, "resumed": cfg}
         if resume_flags:
@@ -2149,18 +2191,18 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
             with open(cfg) as f, open(cfgs["resumed"], "w") as g:
                 g.write(f.read() + "".join(f"{k} = {json.dumps(v)}\n"
                                            for k, v in resume_flags.items()))
-        for name in ("fresh", "resumed"):
+        for name in ("fresh",) if logistic else ("fresh", "resumed"):
             fresh = name == "fresh"
             argv = ["--local-sim", "3", "--config-global", cfgs[name]]
             if platform is not None:
                 argv += ["--platform", platform]
-            hooks, got = _study_hooks(torch, k2_inline=fresh)
+            hooks, got = _study_hooks(torch, k2_inline=fresh, keep_rows=logistic)
             rec = _collective_recorder(k3=True) if fresh else None
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             prof.ENABLED = True
-            if cuda and pca_snps:
+            if cuda and (pca_snps or logistic):
                 prof.SYNC = torch.cuda.synchronize
             cuda_build.reset_launch_counts()
             try:
@@ -2183,7 +2225,8 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
             keep = {pid: np.loadtxt(os.path.join(tmp, "cache", f"party{pid}", "gkeep.txt"))
                     .astype(bool) for pid in (1, 2)}
             shutil.copy(os.path.join(tmp, "out", "party1", "assoc.txt"),
-                        os.path.join(out_dir, f"assoc_{tag}{name}.txt"))
+                        os.path.join(out_dir, f"assoc_{tag}{name}.txt" if not logistic
+                                     else "assoc_logistic.txt"))
             runs[name] = dict(
                 command_s=cmd_s, data_s=data_s,
                 protocol_party1=_protocol_times(lines.lines(), 1),
@@ -2191,6 +2234,7 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
                 init_s={p: v["s"] for p, v in got["init"].items()},
                 keys_from_cache={p: v["keys_from_cache"] for p, v in got["init"].items()},
                 key_dir_write_s=got["save_s"], spans_party1_host_clock=got["spans"],
+                events_party1=got.get("events"),
                 peak_device_bytes=torch.cuda.max_memory_allocated() if cuda else None,
                 peak_host_rss_bytes=rss.peak, launches=launches, stats=out, keep=keep, rec=rec,
                 k2=got["k2"], real_mac=got.get("real_mac"), pca_calls=got["pca_calls"],
@@ -2241,7 +2285,7 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     """Phase 10: the linear skip-PCA study through the CLI, cli.main with
     --local-sim 3 and no --platform (the card), at the example's width: 2 x
     1000 individuals, 5 covariates, config/configGlobalSkipPCA.toml's flags,
-    and the first 2 of its 22 SNP blocks (9,092 SNPs; phase 11 runs 8);
+    and the first 2 of its 22 SNP blocks (9,092 SNPs; phase 11 too);
     run 1 fresh, run 2 resumed from its caches (_study_runs).  Then K2
     timed at its first launch and every other kernel at each shape of run 1
     that no earlier phase checked.  Appends the kernels' records to
@@ -2631,7 +2675,7 @@ def _tcp_run(name: str, d: str, cfgs: list, kernels: list, out_dir: str,
 def tcp_study_phase(torch, seed: int, out_dir: str, kernels: list, n_loc: int = 1000,
                     sizes=STUDY_BLOCKS, platform=None, overrides=None) -> dict:
     """Phase 11: the study of phase 10 at the depth `sizes` gives (2 x 1000
-    individuals, 5 covariates, main() runs the first 8 of the config's 22
+    individuals, 5 covariates, main() runs the first 2 of the config's 22
     blocks; the default is all 22), configGlobalSkipPCA.toml's
     flags) as three party processes over loopback TCP, each `cli.main` with
     its PID and its local config and no --platform (the card), fresh, then
@@ -2751,7 +2795,7 @@ def tcp_study_phase(torch, seed: int, out_dir: str, kernels: list, n_loc: int = 
 PCA_CONFIG = "config/configGlobal.toml"
 PCA_BLOCKS = STUDY_BLOCKS[:3]  # the first 3 of the config's 22 blocks
 PCA_SNPS = 10_000  # LD-pruned SNPs: the example's order (sfgwas_tpu/gwas/pca.py:60-61)
-PCA_POWER_ITERS = 2  # of the config's 20
+PCA_POWER_ITERS = 1  # of the config's 20
 PCA_NPOP, PCA_FST = 3, 0.05  # Balding-Nichols subpopulations
 PCA_SHIFT = (0.0, 0.8, -0.8)  # the phenotype's mean in each subpopulation
 PCA_MIN_COS = 0.99  # |cos| of each of the top two exact PCs with span(Qpc)
@@ -2880,7 +2924,7 @@ def pca_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     oversampling columns (kp 15), cholqr2, QC from the counts at
     config/configGlobal.toml's thresholds, LD pruning at 100,000 bp to
     10,000 SNPs (host-streamed diagonal caches), the first 3 of the
-    config's 22 blocks and 2 of its 20 power iterations; run 1 fresh, run 2
+    config's 22 blocks and 1 of its 20 power iterations; run 1 fresh, run 2
     resumed from the decrypted PCs and the other caches.  Then K2 timed at
     its first launch (a PCA shape) and every other kernel at each shape of
     run 1 that no earlier phase checked.  Appends the kernels' records to
@@ -3142,6 +3186,212 @@ def pca_probe(torch, seed: int, out_dir: str, n_loc: int = 1000, sizes=PCA_BLOCK
     with open(os.path.join(out_dir, "pca_probe.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
     return lines
+
+# ---------------------------------------------------------------------------
+# 13. the logistic study through the CLI
+
+LOGISTIC_CONFIG = "config/configGlobalLogistic.toml"
+LOGISTIC_BLOCKS = STUDY_BLOCKS[:2]  # the first 2 of the config's 22 blocks
+LOGISTIC_EPOCHS = 3  # of the config's 15: tests/test_e2e_gwas.py:79's count
+LOGISTIC_CONVERGED_EPOCHS = 50  # scripts/check_example_oracle.py:97
+LOGISTIC_TOL = 2e-2  # against the oracle of the same epochs
+LOGISTIC_MIN_CORR = 0.999
+LOGISTIC_CONVERGED_CORR = 0.99  # scripts/check_example_oracle.py's own contract
+# the phenotype's logit: an intercept, effects of covariates 0, 1 and 3 (per
+# standard deviation 0.5, 0.4, -0.5) and of 3 planted SNPs' dosages
+LOGISTIC_COV_EFFECTS = (0.5, 0.02, 0.0, -0.01, 0.0)
+LOGISTIC_SNP_EFFECTS = (0.6, -0.5, 0.4)
+# K2's launches a block at each data party: g^T W z B^T, g^T W g on the
+# squared block, g^T y~ and g^T o
+LOGISTIC_K2_A_BLOCK = 4
+
+
+def _logistic_data(seed: int, n_loc: int, m: int, ncov: int = 5):
+    """Phase 13's data from the seed, per data party: phase 9's genotypes
+    (MAF uniform in [0.02, 0.5], about 1% missing) and covariates (phase
+    8's column scales), and a binary phenotype drawn from a logistic model
+    over the covariates and 3 planted SNPs (missing read as 0), as
+    tests/test_e2e_gwas.py:255 draws its own."""
+    rng = np.random.default_rng(seed + 13)
+    maf = rng.uniform(0.02, 0.5, size=m)
+    planted = rng.choice(m, len(LOGISTIC_SNP_EFFECTS), replace=False)
+    out = {}
+    for pid in (1, 2):
+        g = rng.binomial(2, maf[None, :], size=(n_loc, m)).astype(np.int8)
+        g[rng.uniform(size=(n_loc, m)) < 0.01] = -1
+        cov = rng.normal(size=(n_loc, ncov)) * np.array([1.0, 20.0, 0.1, 50.0, 0.3])[:ncov]
+        logit = (-0.2 + cov @ np.asarray(LOGISTIC_COV_EFFECTS)[:ncov]
+                 + np.maximum(g[:, planted], 0) @ np.asarray(LOGISTIC_SNP_EFFECTS))
+        pheno = (rng.uniform(size=n_loc) < 1 / (1 + np.exp(-logit))).astype(float)
+        out[pid] = (g, pheno, cov)
+    return out
+
+
+def logistic_oracle(data, keep: np.ndarray, epochs: int) -> np.ndarray:
+    """The exact-sigmoid score test after `epochs` Newton steps from zero
+    weights on [ones | covariates] (the first step's p is 1/2, as
+    lr_newton_cov_only's first epoch without the intercept term), then
+    scripts/check_example_oracle.py:93-116's statistic (missing dosages
+    read as 0)."""
+    G = np.concatenate([data[1][0], data[2][0]])[:, keep].astype(np.float64)
+    G[G < 0] = 0.0
+    y = np.concatenate([data[1][1], data[2][1]])
+    Z = np.column_stack([np.ones(len(y)), np.concatenate([data[1][2], data[2][2]])])
+    beta = np.zeros(Z.shape[1])
+    for _ in range(epochs):
+        p = 1 / (1 + np.exp(-Z @ beta))
+        w = p * (1 - p)
+        beta = beta + np.linalg.solve(Z.T @ (Z * w[:, None]), Z.T @ (y - p))
+    p = 1 / (1 + np.exp(-Z @ beta))
+    w = p * (1 - p)
+    ZW = Z * w[:, None]
+    Hinv = np.linalg.inv(Z.T @ ZW)
+    gzw = G.T @ ZW
+    den = (w[:, None] * G * G).sum(0) - np.einsum("ij,jk,ik->i", gzw, Hinv, gzw)
+    return (G.T @ (y - p)) / np.sqrt(den)
+
+
+def logistic_study_check(data, runs, n_loc: int, epochs: int) -> dict:
+    """The revealed filters against the QC oracle, the statistics against
+    the oracle of the same epochs and the converged one."""
+    fresh = runs["fresh"]
+    keep = assoc_qc_oracle(data, ASSOC_FILTER, n_loc)
+    want = logistic_oracle(data, keep, epochs)
+    conv = logistic_oracle(data, keep, LOGISTIC_CONVERGED_EPOCHS)
+    checks = {"snps": int(len(keep)), "kept": int(keep.sum()),
+              "cases": int(sum(data[p][1].sum() for p in (1, 2))),
+              "oracle_epochs_vs_converged_max_abs_diff": float(np.abs(want - conv).max()),
+              "fresh_filter_equal": {p: bool(np.array_equal(fresh["keep"][p], keep))
+                                     for p in (1, 2)}}
+    for pid in (1, 2):
+        got = fresh["stats"][pid]
+        ok = got.shape == want.shape
+        checks[pid] = {
+            "finite": bool(np.isfinite(got).all()),
+            "max_abs_err": float(np.abs(got - want).max()) if ok else None,
+            "corr": float(np.corrcoef(got, want)[0, 1]) if ok else None,
+            "converged_max_abs_err": float(np.abs(got - conv).max()) if ok else None,
+            "converged_corr": float(np.corrcoef(got, conv)[0, 1]) if ok else None,
+        }
+    return checks
+
+
+def _logistic_study_runs(torch, seed: int, out_dir: str, n_loc: int = 1000,
+                         sizes=LOGISTIC_BLOCKS, platform=None, overrides=None):
+    """Phase 13's CLI run (_study_runs on config/configGlobalLogistic.toml
+    with the epochs cut to LOGISTIC_EPOCHS; platform=None is the card).  A
+    CPU rehearsal: platform="cpu" with a small n_loc and sizes and, in
+    overrides, "ckks_params": "TEST8", num_inds and num_snps."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    fields = {"num_snps": int(sum(sizes)), "epochs": LOGISTIC_EPOCHS}
+    fields.update(overrides or {})
+    return _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, LOGISTIC_CONFIG),
+                       platform=platform, overrides=fields, logistic=True)
+
+
+# party 1's spans that split a logistic run: each Newton epoch, the score
+# test's preparation and each score-test block (the spans that ended since
+# the previous one of these are its parts)
+LOGISTIC_SPLITS = ("lr_epoch", "score_prep", "score_block")
+
+
+def logistic_spans(events) -> dict:
+    """Party 1's span events (prof.events()) split per Newton epoch, the
+    score test's preparation and per score-test block: each part's seconds
+    by span name (the split span's own seconds under its name)."""
+    parts = {k: [] for k in LOGISTIC_SPLITS}
+    cur: dict = {}
+    for name, secs in events or []:
+        if name in LOGISTIC_SPLITS:
+            cur[name] = cur.get(name, 0.0) + secs
+            parts[name].append(cur)
+            cur = {}
+        else:
+            cur[name] = cur.get(name, 0.0) + secs
+    return {"epochs": parts["lr_epoch"], "score_prep": parts["score_prep"],
+            "score_blocks": parts["score_block"]}
+
+
+def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
+    """Phase 13: the logistic study through the CLI, cli.main with
+    --local-sim 3 and no --platform (the card), at
+    config/configGlobalLogistic.toml's width: PN14QP438, QC from the counts
+    at its thresholds, cached keys, skip_pca, the degree-62 sigmoid on
+    [-10, 10], inverse_mat_scale 10,000, 2 x 1000 individuals, 5
+    covariates, the first 2 of the config's 22 blocks and 3 of its 15
+    Newton epochs; one fresh run.  Then K2 timed at its first launch at
+    each row count (6: g^T W z B^T; 1: the squared block's g^T W g) and
+    every other kernel at each shape of the run that no earlier phase
+    checked.  Appends the kernels' records to `kernels`; returns the
+    phase's record."""
+    from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.gwas import matmult as MM
+
+    params = get_params("PN14QP438")
+    n_loc, sizes = 1000, LOGISTIC_BLOCKS
+    t_phase = time.time()
+    data, runs = _logistic_study_runs(torch, seed, out_dir, n_loc, sizes)
+    checks = logistic_study_check(data, runs, n_loc, LOGISTIC_EPOCHS)
+    fresh = runs["fresh"]
+    k2 = fresh["k2"]
+    line = {
+        "individuals": [0, n_loc, n_loc], "covariates": 5, "snps": int(sum(sizes)),
+        "blocks": len(sizes), "config": LOGISTIC_CONFIG, "epochs": LOGISTIC_EPOCHS,
+        "sigmoid": {"A": -10.0, "B": 10.0, "degree": 62}, "inverse_mat_scale": 10000.0,
+        "phenotype": {"cov_effects": LOGISTIC_COV_EFFECTS, "snp_effects": LOGISTIC_SNP_EFFECTS},
+        "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
+                    "blocks": [len(STUDY_BLOCKS), len(sizes)],
+                    "epochs": [15, LOGISTIC_EPOCHS],
+                    "why": "time: the whole script runs within its 1,200 s"},
+        "checks": checks, "data_s": fresh["data_s"],
+        "k2_inline_checks": {k: k2[k] for k in ("launches", "equal", "check_s")},
+        "k2_launches_by_rows": dict(k2["launches_by_rows"]),
+        "host_cpu": f"{_cpu_model()}, {os.cpu_count()} logical cores",
+        "fresh": {k: fresh[k] for k in (
+            "command_s", "protocol_party1", "protocol_party2", "init_s", "keys_from_cache",
+            "peak_device_bytes", "peak_host_rss_bytes", "launches")},
+    }
+    line["fresh"]["spans_party1"] = fresh["spans_party1_host_clock"]
+    line["fresh"]["logistic_party1"] = logistic_spans(fresh["events_party1"])
+    _say(f"logistic study phase: {json.dumps(line)}")
+    for pid, eq in checks["fresh_filter_equal"].items():
+        if not eq:
+            raise AssertionError(f"logistic run, party {pid}: the revealed SNP filter differs "
+                                 "from the oracle")
+    for pid in (1, 2):
+        c = checks[pid]
+        if (not c["finite"] or c["max_abs_err"] is None or not c["max_abs_err"] <= LOGISTIC_TOL
+                or not c["corr"] > LOGISTIC_MIN_CORR
+                or not c["converged_corr"] > LOGISTIC_CONVERGED_CORR):
+            raise AssertionError(f"logistic party {pid}: statistics off: {c}")
+    missing = [k for k in ASSOC_PATH if fresh["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the logistic study's run: {missing}")
+    want = LOGISTIC_K2_A_BLOCK * len(sizes) * 2
+    if (fresh["launches"]["mac_dense"] != want or k2["launches"] != want
+            or k2["equal"] != want or sorted(k2["by_rows"]) != [1, 6]):
+        raise AssertionError(f"K2: {fresh['launches']['mac_dense']} launches, {k2['equal']} of "
+                             f"{k2['launches']} equal to its plain version, rows "
+                             f"{sorted(k2['by_rows'])}; want {want} at rows 1 and 6")
+    rec = fresh.pop("rec")
+    del runs
+    for rows in sorted(k2["by_rows"]):
+        R0, R1, polys, mruns, q, mu, logn, nacc = k2["by_rows"].pop(rows)
+        _k2_check(torch, MM, kernels,
+                  f"mac_dense (logistic, {rows} rows) {[mruns.nruns, int(mruns.run_start_host[-1])]}",
+                  fresh["real_mac"], R0, R1, polys, mruns, q, mu, logn, nacc)
+        kernels[-1].update(launches=fresh["launches"]["mac_dense"], path="logistic_study",
+                           launches_at_shape=k2["launches_by_rows"][rows],
+                           inline_equal_launches=k2["equal"])
+        del R0, R1, polys, mruns
+        torch.cuda.empty_cache()
+    k2.pop("first", None)
+    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+        torch, rec, fresh["launches"], params, kernels, "logistic_study", new_only=True)
+    del rec
+    line.update(k1_new_shapes_total_ms=k1_total, k1_shapes=k1_shapes, tree_shapes=tree_shapes,
+                phase_s=time.time() - t_phase)
+    return line
 
 
 def main() -> int:
@@ -3418,11 +3668,13 @@ def main() -> int:
                                 overrides={"num_snps": int(sum(TCP_BLOCKS))})
     # ---- 12. the default-config study with PCA through the CLI
     pca_study = pca_study_phase(torch, args.seed, out_dir, kernels)
+    # ---- 13. the logistic study through the CLI
+    logistic_study = logistic_study_phase(torch, args.seed, out_dir, kernels)
     # the shapes --tree times: K1's of one product, K4's of every path,
     # bs_mask's and K6's of the collective phases
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
               "crt_lift": []}
-    for phase in (mhe, ss, qr, assoc, study, tcp_study, pca_study):
+    for phase in (mhe, ss, qr, assoc, study, tcp_study, pca_study, logistic_study):
         for key, found in phase.pop("tree_shapes").items():
             shapes[key] += [s for s in found if s not in shapes[key]]
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
@@ -3462,6 +3714,7 @@ def main() -> int:
         "study": study,
         "tcp_study": tcp_study,
         "pca_study": pca_study,
+        "logistic_study": logistic_study,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -1,6 +1,5 @@
-"""CipherVector / CipherMatrix operations (counterpart of
-sfgwas_tpu/crypto/basics.py:28-606; its Chebyshev part waits for the
-logistic path).
+"""CipherVector / CipherMatrix operations and the Chebyshev evaluators of
+the logistic path's sigmoid (counterpart of sfgwas_tpu/crypto/basics.py).
 
 Vectors are row-major chunks of `slots` values, one ciphertext per chunk.
 "RotateRight by r" rotates slot contents toward higher indices; a mask
@@ -16,6 +15,7 @@ exact int64 arithmetic (ROADMAP B13, B14).
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import numpy as np
@@ -482,3 +482,221 @@ def copy_vec(X: CipherVector) -> CipherVector:
 
 def copy_mat(X: CipherMatrix) -> CipherMatrix:
     return [[ct.copy() for ct in row] for row in X]
+
+
+# ---------------------------------------------------------------------------
+# Chebyshev approximation (the Go sfgwas's crypto/basics.go:613-646, used by
+# the logistic path's sigmoid, mpc/mhe.go:608-677)
+
+
+def chebyshev_coeffs(fn, a: float, b: float, degree: int) -> np.ndarray:
+    """Chebyshev interpolation coefficients of fn on [a, b]."""
+    k = degree + 1
+    nodes = np.cos(np.pi * (np.arange(k) + 0.5) / k)
+    x = 0.5 * (b - a) * nodes + 0.5 * (a + b)
+    y = np.array([fn(v) for v in x])
+    coeffs = np.zeros(k)
+    for j in range(k):
+        coeffs[j] = (2.0 / k) * np.sum(y * np.cos(np.pi * j * (np.arange(k) + 0.5) / k))
+    coeffs[0] /= 2.0
+    return coeffs
+
+
+def evaluate_chebyshev(cps, ct: C.Ciphertext, coeffs: np.ndarray, a: float, b: float):
+    """sum_j c_j T_j(y) with y = (2x - a - b)/(b - a), through the linear T
+    recurrence (depth ~degree: moderate degrees on a deep preset)."""
+    ctx = cps.ctx
+    y = ctx.rescale(ctx.mul_const(ct, 2.0 / (b - a)))
+    y = ctx.add_const(y, (-a - b) / (b - a))
+    # T0 = 1 is the constant term, T1 = y
+    acc = ctx.rescale(ctx.mul_const(y, float(coeffs[1])))
+    acc = ctx.add_const(acc, float(coeffs[0]))
+    t_prev = None
+    t_cur = y
+    for j in range(2, len(coeffs)):
+        if t_prev is None:
+            # T2 = 2y^2 - 1
+            t_next = ctx.rescale(ctx.mul_relin(y, y, cps.rlk))
+            t_next = ctx.add_const(ctx.rescale(ctx.mul_const(t_next, 2.0)), -1.0)
+        else:
+            ty = ctx.rescale(ctx.mul_relin(t_cur, y, cps.rlk))
+            t_next = ctx.sub(ctx.rescale(ctx.mul_const(ty, 2.0)), _align(ctx, t_prev, ty))
+        if abs(coeffs[j]) > 1e-12:
+            term = ctx.rescale(ctx.mul_const(t_next, float(coeffs[j])))
+            acc = ctx.add(_align(ctx, acc, term), _align(ctx, term, acc))
+        t_prev, t_cur = t_cur, t_next
+    return acc
+
+
+def _align(ctx, x: C.Ciphertext, ref: C.Ciphertext) -> C.Ciphertext:
+    return ctx.drop_to(x, ref.nmod) if x.nmod > ref.nmod else x
+
+
+def _ensure(net, cps, bootstrap_fn):
+    """The refresh rule of both recurrences: one step spends up to 3 prime
+    pairs off a T value (the product, the 2x, the coefficient), so a value
+    with fewer than 3 mult levels left is refreshed first."""
+    low = min(cps.ctx.nq, cps.ctx.params.base_nmod + 6)
+
+    def ensure(x):
+        return bootstrap_fn(net, cps, x, -1) if x.nmod < low else x
+
+    return ensure
+
+
+def evaluate_chebyshev_interactive(net, cps, cv, coeffs, a, b, bootstrap_fn):
+    """The T recurrence over a CipherVector, refreshing (bootstrap_fn(net,
+    cps, ct, -1)) during the recurrence whenever a value runs low."""
+    return [_cheby_one(net, cps, ct, coeffs, a, b, bootstrap_fn) for ct in cv]
+
+
+def _cheby_one(net, cps, ct, coeffs, a, b, bootstrap_fn):
+    ctx = cps.ctx
+    ensure = _ensure(net, cps, bootstrap_fn)
+    # every T_k and every coefficient term lands exactly at the preset scale
+    # (mul_const_to), so the accumulation and the recurrence's subtraction
+    # stay scale-matched across refreshes
+    tgt = ctx.params.scale
+    ct = ensure(ct)
+    y = ctx.rescale(ctx.mul_const_to(ct, 2.0 / (b - a), tgt))
+    y = ctx.add_const(y, (-a - b) / (b - a))
+    acc = ctx.rescale(ctx.mul_const_to(y, float(coeffs[1]), tgt))
+    acc = ctx.add_const(acc, float(coeffs[0]))
+    t_prev = None
+    t_cur = y
+    for j in range(2, len(coeffs)):
+        y = ensure(y)
+        t_cur = ensure(t_cur)
+        if t_prev is None:
+            t_next = ctx.rescale(ctx.mul_relin(y, y, cps.rlk))
+            t_next = ctx.add_const(ctx.rescale(ctx.mul_const_to(t_next, 2.0, tgt)), -1.0)
+        else:
+            ty = ctx.rescale(ctx.mul_relin(t_cur, y, cps.rlk))
+            ty2 = ctx.rescale(ctx.mul_const_to(ty, 2.0, tgt))
+            t_next = ctx.sub(ty2, ctx.drop_to(ensure(t_prev), ty2.nmod))
+        if abs(float(coeffs[j])) > 1e-12:
+            term = ctx.rescale(ctx.mul_const_to(t_next, float(coeffs[j]), tgt))
+            acc = ensure(acc)
+            nm = min(acc.nmod, term.nmod)
+            acc = ctx.add(ctx.drop_to(acc, nm), ctx.drop_to(term, nm))
+        t_prev, t_cur = t_cur, t_next
+    return acc
+
+
+def evaluate_chebyshev_bsgs(net, cps, cv, coeffs, a, b, bootstrap_fn):
+    """Baby-step giant-step Chebyshev evaluation of a CipherVector, depth
+    ~log2(degree) (the Go sfgwas evaluates its degree-62 sigmoid this way,
+    mpc/mhe.go:617-673, lattigo's EvaluateCheby); bootstrap_fn refreshes a
+    basis value or a partial sum that runs low.
+
+    Every basis element T_k lands exactly at the preset scale (mul_const_to
+    on the recurrence's 2x), and the recursion threads a target scale
+    down: a remainder is computed at the scale its quotient-times-giant
+    product reached, so every homomorphic add is scale-exact."""
+    return [
+        _cheby_bsgs_one(net, cps, ct, np.asarray(coeffs, float), a, b, bootstrap_fn)
+        for ct in cv
+    ]
+
+
+def _cheby_bsgs_one(net, cps, ct, coeffs, a, b, bootstrap_fn):
+    ctx = cps.ctx
+    tgt = ctx.params.scale
+    ensure = _ensure(net, cps, bootstrap_fn)
+
+    deg = len(coeffs) - 1
+    while deg > 0 and abs(coeffs[deg]) < 1e-12:
+        deg -= 1
+    coeffs = coeffs[: deg + 1]
+
+    # y = (2x - a - b)/(b - a), exactly at tgt
+    ct = ensure(ct)
+    y = ctx.rescale(ctx.mul_const_to(ct, 2.0 / (b - a), tgt))
+    y = ctx.add_const(y, (-a - b) / (b - a))
+
+    if deg == 0:
+        z = ctx.zero_ct(y.nmod)
+        return ctx.add_const(C.Ciphertext(z.c0, z.c1, y.nmod, y.scale), float(coeffs[0]))
+
+    # the basis: T_k in depth log2(k) by T_{i+j} = 2 T_i T_j - T_{|i-j|}
+    T = {1: y}
+
+    def get_t(k: int):
+        if k in T:
+            return T[k]
+        i, j = k // 2, k - k // 2
+        ti = ensure(get_t(i))
+        tj = ti if i == j else ensure(get_t(j))
+        prod = ctx.rescale(ctx.mul_relin(ti, tj, cps.rlk))
+        prod2 = ctx.rescale(ctx.mul_const_to(prod, 2.0, tgt))
+        if i == j:
+            res = ctx.add_const(prod2, -1.0)  # T_0 = 1
+        else:
+            td = ensure(get_t(j - i))
+            nm = min(prod2.nmod, td.nmod)
+            res = ctx.sub(ctx.drop_to(prod2, nm), ctx.drop_to(td, nm))
+        T[k] = res
+        return res
+
+    m = max(1, math.ceil(math.log2(deg + 1)))
+    # the baby set T_0..T_{nb-1}; nb >= 2 so that a split never picks p = 0
+    nb = max(2, 1 << (m // 2))
+
+    def rec(c: np.ndarray, tscale: float):
+        """sum c_j T_j as a ciphertext at exactly tscale, or ("const", v)
+        for a constant polynomial."""
+        d = len(c) - 1
+        while d > 0 and abs(c[d]) < 1e-12:
+            d -= 1
+        c = c[: d + 1]
+        if d == 0:
+            return ("const", float(c[0]))
+        if d < nb:
+            acc = None
+            for j in range(d, 0, -1):
+                if abs(c[j]) < 1e-12:
+                    continue
+                term = ctx.rescale(ctx.mul_const_to(ensure(get_t(j)), float(c[j]), tscale))
+                if acc is None:
+                    acc = term
+                else:
+                    nm = min(acc.nmod, term.nmod)
+                    acc = ctx.add(ctx.drop_to(acc, nm), ctx.drop_to(term, nm))
+            return ctx.add_const(acc, float(c[0]))
+        # split at the largest power of two p <= d (p < d):
+        # sum_{j>=p} c_j T_j = T_p (c_p + sum_{j>p} 2 c_j T_{j-p}) - sum_{j>p} c_j T_{2p-j}
+        p = 1 << (d.bit_length() - 1)
+        if p == d:
+            p >>= 1
+        q = np.zeros(d - p + 1)
+        q[0] = c[p]
+        q[1 : d - p + 1] = 2.0 * c[p + 1 : d + 1]
+        r = np.zeros(p)
+        r[:p] = c[:p]
+        for j in range(p + 1, d + 1):
+            r[2 * p - j] -= c[j]
+        qc = rec(q, tgt)
+        tp = ensure(get_t(p))
+        if isinstance(qc, tuple):
+            prod = ctx.rescale(ctx.mul_const_to(tp, qc[1], tscale))
+        else:
+            nm = min(qc.nmod, tp.nmod)
+            prod = ctx.rescale(ctx.mul_relin(ctx.drop_to(qc, nm), ctx.drop_to(tp, nm), cps.rlk))
+        prod = ensure(prod)
+        # the remainder lands at the scale the product reached
+        rc = rec(r, prod.scale)
+        if isinstance(rc, tuple):
+            return ctx.add_const(prod, rc[1])
+        rc = ensure(rc)
+        if abs(rc.scale / prod.scale - 1.0) > 1e-9:
+            # a nested split returns at its own product's scale: steer it
+            # to prod's exactly (x1.0 at the compensating scale)
+            rc = ensure(ctx.rescale(ctx.mul_const_to(rc, 1.0, prod.scale)))
+        nm = min(prod.nmod, rc.nmod)
+        return ctx.add(ctx.drop_to(prod, nm), ctx.drop_to(rc, nm))
+
+    out = rec(coeffs, tgt)
+    if isinstance(out, tuple):  # a constant polynomial
+        z = ctx.zero_ct(y.nmod)
+        return ctx.add_const(C.Ciphertext(z.c0, z.c1, y.nmod, y.scale), out[1])
+    return out

@@ -1,13 +1,22 @@
 """Association tests (counterpart of sfgwas_tpu/gwas/assoc.py; the Go
-sfgwas's gwas/assoc.go): the combined covariate basis (compute_combined_q)
-and the linear statistics with their standard-deviation inverse
-(get_association_stats, compute_std_inv).
+sfgwas's gwas/assoc.go): the combined covariate basis (compute_combined_q),
+the linear statistics with their standard-deviation inverse
+(get_association_stats, compute_std_inv), and the logistic path: Newton
+iterations on the covariates alone (lr_newton_cov_only over
+compute_grad_and_inv_hessian) and the per-SNP score test (gwy_score_test).
 
 The linear statistic of a SNP is stdinvx * stdinvy * sxy, with y~ the
 phenotype projected off the covariate basis Q: one concatenated product
 [Q | y~] x G per genotype block gives Q^T G and sxy; the variances go
-through the SS domain for their inverse square roots.  The logistic path
-follows (ROADMAP A10).
+through the SS domain for their inverse square roots.
+
+The logistic path evaluates the sigmoid as a Chebyshev polynomial in HE
+(crypto/basics.py::evaluate_chebyshev_bsgs), forms Z^T W Z in HE and
+inverts it in the SS domain (mpc/linalg.py::matrix_inverse_sqrt_svd, the
+dealer's only part); the score test streams one genotype block at a time.
+Party 1's stages run under prof spans: lr_epoch (lr_sigmoid, lr_hess_he,
+lr_inv_ss, lr_step inside), score_prep, score_block (score_encode,
+score_mm, score_ss inside).
 """
 
 from __future__ import annotations
@@ -337,4 +346,241 @@ def compute_std_inv(mpc: MPC, cps: CryptoParams, varx, vary, nsnps: int, filt):
     if pid > 0:
         stdinvy_ct = B.rotate_and_add(cps, stdinvy_ct, cps.slots)
         return stdinvx_cv[0], stdinvy_ct
+    return None, None
+
+
+# ---------------------------------------------------------------------------
+# Logistic regression (the Go sfgwas's gwas/assoc.go:955-1476)
+
+
+def _sigmoid_coeffs(a: float, b: float, degree: int):
+    return B.chebyshev_coeffs(lambda x: 1.0 / (1.0 + math.exp(-x)), a, b, degree)
+
+
+def _sub_low(ctx, X, Y):
+    """X - Y, ciphertext by ciphertext, at the lower level of the two."""
+    nm = min(X[0].nmod, Y[0].nmod)
+    return [ctx.sub(ctx.drop_to(a, nm), ctx.drop_to(b, nm)) for a, b in zip(X, Y)]
+
+
+def _inverse_ss(mpc: MPC, cps: CryptoParams, ztwz, ncov: int):
+    """Z^T W Z (ncov row-packed ciphertexts; None at the dealer) -> B^T as
+    row-packed ciphertexts with B^T B = (Z^T W Z + (Z^T W Z)^T)^{-1}, through
+    the SS domain; the dealer's whole part of a Newton step."""
+    from ..mpc import linalg
+
+    with prof.span("lr_inv_ss"):
+        ztwz_ss = ss_he.cmat_to_ss(mpc, cps, ztwz, -1, ncov)
+        b_ss = linalg.matrix_inverse_sqrt_svd(mpc, ztwz_ss)
+        return ss_he.ss_to_cmat(mpc, cps, np.swapaxes(np.asarray(b_ss), 0, 1))
+
+
+def compute_grad_and_inv_hessian(
+    mpc: MPC,
+    cps: CryptoParams,
+    Cm,
+    C_scaled_up,
+    y: np.ndarray,
+    weights,
+    approx,
+    nrows_all: List[int],
+    skip_intercept: bool,
+    compute_grad: bool,
+    inverse_mat_scale: float,
+):
+    """One Newton step's ingredients (gwas/assoc.go:992-1171): returns
+    (grad, ZTwZInv, BT, Wz, y~, w) at the data parties.  At party 0 pass the
+    covariate count as Cm: the dealer takes part only in the SS inversion
+    of the Hessian and returns Nones."""
+    ctx = cps.ctx
+    tot_n = sum(nrows_all[1:])
+    if mpc.pid == 0:
+        ncov = int(Cm)
+        _inverse_ss(mpc, cps, [None] * ncov, ncov)
+        return None, None, None, None, None, None
+    n_local = len(y)
+    ncov = len(Cm)
+
+    with prof.span("lr_sigmoid"):
+        # p = sigmoid(C w)
+        if skip_intercept:
+            cov_intercept = B.encrypt_float_vector(cps, np.zeros(n_local))
+        else:
+            cov_intercept = MM.cmult_mat_col_times_col_to_col(cps, Cm, weights, len(Cm[0]))
+        a_lo, b_hi, degree = approx
+        coeffs = _sigmoid_coeffs(a_lo, b_hi, degree)
+
+        def _refresh_local(net, cps_, ct, _src):
+            # the operand is party-local (each party's own rows): a refresh
+            # inside the recurrence takes per-source turns
+            return mhe.bootstrap_mat_all(net, cps_, [[ct]])[0][0]
+
+        p_hat = B.evaluate_chebyshev_bsgs(
+            mpc.net, cps, cov_intercept, coeffs, a_lo, b_hi, _refresh_local
+        )
+        # refreshed two primes below the top, where the refresh resets the
+        # scale exactly: y adds at exactly p's scale (as the linear y~)
+        p_hat = mhe.bootstrap_mat_all(mpc.net, cps, [p_hat], target_nmod=ctx.nq - 2)[0]
+        y_pt = B.encode_float_vector(cps, y)
+        y_tilde = B.cpadd(cps, [ctx.mul_const_int(ct, -1) for ct in p_hat], y_pt)
+
+    with prof.span("lr_hess_he"):
+        grad = None
+        if compute_grad:
+            grad = MM.cmult_mat_inner_prod_vector(cps, Cm, y_tilde)
+            grad = mhe.aggregate_cvec(mpc.net, cps, grad)
+
+        # w = p (1 - p)
+        w_vec = _sub_low(ctx, p_hat, B.cmult(cps, p_hat, p_hat))
+        w_vec = mhe.bootstrap_mat_all(mpc.net, cps, [w_vec])[0]
+
+        # Wz = w o C_scaled_up; its consumers (Z^T W Z here, Wz B^T and
+        # Wz (Z^T W Z)^{-1} in the score test) each need 2 more levels
+        Wz = [B.cmult(cps, w_vec, C_scaled_up[i]) for i in range(ncov)]
+        Wz = mhe.bootstrap_mat_all(mpc.net, cps, Wz)
+
+        ZTwZ = MM.cmult_mat_inner_prod(cps, Cm, Wz)
+        ZTwZ = mhe.aggregate_cmat(mpc.net, cps, ZTwZ)
+        ZTwZ = mhe.bootstrap_mat(mpc.net, cps, ZTwZ, -1)
+        ZTwZ = [
+            B.cmult_const(cps, row, 1.0 / (tot_n / inverse_mat_scale), rescale=True)
+            for row in ZTwZ
+        ]
+
+    bt_cm = _inverse_ss(mpc, cps, ZTwZ, ncov)
+    with prof.span("lr_step"):
+        scale_back = math.sqrt((inverse_mat_scale * 2) / math.sqrt(tot_n))
+        BT = [B.cmult_const(cps, row, scale_back, rescale=True) for row in bt_cm]
+        ZTwZInv = MM.cmult_mat_inner_prod(cps, BT, list(BT))
+        # ZTwZInv lands at the base level: refreshed (the same at every data
+        # party) for the Newton step's and the score test's products
+        ZTwZInv = mhe.bootstrap_mat(mpc.net, cps, ZTwZInv, -1)
+    return grad, ZTwZInv, BT, Wz, y_tilde, w_vec
+
+
+def lr_newton_cov_only(mpc: MPC, cps: CryptoParams, Cm, y, epochs: int, nrows_all: List[int],
+                       approx, inverse_mat_scale: float):
+    """Newton iterations on the covariates alone (LrNewtonBasedCovOnly,
+    gwas/assoc.go:955-990) from zero weights, the first epoch without the
+    intercept term.  Cm is the combined basis scaled by 1/sqrt(n); at party
+    0 pass the covariate count.  Returns the packed weights (None at 0)."""
+    tot_n = sum(nrows_all[1:])
+    if mpc.pid == 0:
+        for i in range(epochs):
+            compute_grad_and_inv_hessian(mpc, cps, Cm, None, np.zeros(0), None, approx,
+                                         nrows_all, i == 0, True, inverse_mat_scale)
+        return None
+    C_scaled = B.cmult_const_mat(cps, Cm, math.sqrt(tot_n), rescale=True)
+    weights = B.encrypt_float_vector(cps, np.zeros(cps.slots))
+    for i in range(epochs):
+        log(f"pid{mpc.pid} logistic epoch {i + 1}/{epochs}")
+        with prof.span("lr_epoch"):
+            grad, inv_hess, _, _, _, _ = compute_grad_and_inv_hessian(
+                mpc, cps, Cm, C_scaled, y, weights, approx, nrows_all, i == 0, True,
+                inverse_mat_scale,
+            )
+            with prof.span("lr_step"):
+                grad = mhe.bootstrap_mat(mpc.net, cps, [grad], -1)[0]
+                step = MM.cmult_mat_col_times_col_to_col(cps, inv_hess, grad, len(weights))
+                weights = MM.add_vec_low(cps, weights, step[: len(weights)])
+                weights = mhe.bootstrap_mat_all(mpc.net, cps, [weights])[0]
+    return weights
+
+
+def gwy_score_test(mpc: MPC, cps: CryptoParams, Cm, geno_blocks, y, weights, approx,
+                   nrows_all: List[int], inverse_mat_scale: float):
+    """The per-SNP logistic score test (gWY, gwas/assoc.go:1174-1476):
+    t = g~^T y~ / sqrt(g^T W g - correction), one genotype block resident
+    at a time.  Returns (statistics CipherVector, SNP filter) at the data
+    parties, (None, None) at party 0 (pass the covariate count as Cm)."""
+    ctx = cps.ctx
+    slots = cps.slots if cps else 1
+    tot_n = sum(nrows_all[1:])
+    pid = mpc.pid
+
+    with prof.span("score_prep"):
+        if pid > 0:
+            C_scaled = B.cmult_const_mat(cps, Cm, math.sqrt(tot_n), rescale=True)
+            _, ZTwZInv, BT, Wz, y_tilde, w_vec = compute_grad_and_inv_hessian(
+                mpc, cps, Cm, C_scaled, y, weights, approx, nrows_all, False, False,
+                inverse_mat_scale,
+            )
+            ncov = len(Cm)
+            WzZTwZInv = MM.cmult_mat_col_times_row_to_col(cps, Wz, ZTwZInv, ncov)
+            WzZTwZInv = mhe.bootstrap_mat_all(mpc.net, cps, WzZTwZInv)
+            WzBT = MM.cmult_mat_col_times_row_to_col(cps, Wz, BT, ncov)
+            WzBT = mhe.bootstrap_mat_all(mpc.net, cps, WzBT)
+
+            # o = Wz (Z^T W Z)^{-1} Z^T y~
+            y_tilde = mhe.bootstrap_mat_all(mpc.net, cps, [y_tilde])[0]
+            ZTy = MM.cmult_mat_inner_prod_vector(cps, C_scaled, y_tilde)
+            ZTy = mhe.aggregate_cvec(mpc.net, cps, ZTy)
+            ZTy = mhe.bootstrap_mat(mpc.net, cps, [ZTy], -1)[0]
+            o_vec = MM.cmult_mat_col_times_col_to_col(cps, WzZTwZInv, ZTy, len(Wz[0]))
+            o_vec = B.cmult_const(cps, o_vec, 1.0 / tot_n, rescale=True)
+            o_vec = mhe.bootstrap_mat_all(mpc.net, cps, [o_vec])[0]
+        else:
+            compute_grad_and_inv_hessian(mpc, cps, Cm, None, np.zeros(0), None, approx,
+                                         nrows_all, False, False, inverse_mat_scale)
+
+    results, out_filt = [], []
+    nblocks = len(geno_blocks) if pid > 0 else mpc.net.recv_int(mpc.hub_pid)
+    if pid == mpc.hub_pid:
+        mpc.net.send_int(nblocks, 0)
+    for blk in range(nblocks):
+        with prof.span("score_block"):
+            if pid > 0:
+                log(f"pid{pid} score test block {blk + 1}/{nblocks}")
+                with prof.span("score_encode"):
+                    G = fs.load_block(geno_blocks[blk])
+                    msnp = G.shape[1]
+                    nsnp_ct = 1 + (msnp - 1) // slots
+                    if pid == mpc.hub_pid:
+                        mpc.net.send_int(msnp, 0)
+                    # one diagonal encoding serves the three unsquared
+                    # products of the block (g^T WzBT, g^T y~, g^T o)
+                    g_cache = MM.preprocess_matrix(cps, G, MM.mm_nmod(cps))
+                with prof.span("score_mm"):
+                    # the b part: (g^T W z B^T)^2 summed over the covariates
+                    ztwbt_g = MM.mat_mult_cached(cps, WzBT, g_cache)
+                    ztwbt_g = mhe.aggregate_cmat(mpc.net, cps, ztwbt_g)
+                    ztwbt_g = mhe.bootstrap_mat(mpc.net, cps, ztwbt_g, -1)
+                    gTW2g = None
+                    for row in ztwbt_g:
+                        gTW2g = MM.add_vec_low(cps, gTW2g, B.cmult(cps, row, row))
+                    gTW2g = B.cmult_const(cps, gTW2g, 1.0 / tot_n, rescale=True)
+
+                    # the x part: g^T W g over the squared genotypes
+                    gTWg, _, _ = MM.mat_mult_stream(cps, [w_vec], G, square=True)
+                    gTWg = mhe.aggregate_cmat(mpc.net, cps, gTWg)
+                    denom = _sub_low(ctx, gTWg[0], gTW2g)
+                    denom = mhe.bootstrap_mat(mpc.net, cps, [denom], -1)[0]
+
+                    # the numerator: g^T y~ - g^T o
+                    gTy = MM.mat_mult_cached(cps, [y_tilde], g_cache)
+                    gTo = MM.mat_mult_cached(cps, [o_vec], g_cache)
+                    MM.release_plan(g_cache)
+                    del g_cache, G
+                    numer = _sub_low(ctx, gTy[0], gTo[0])
+                    numer = mhe.aggregate_cvec(mpc.net, cps, numer)
+                    numer = mhe.bootstrap_mat(mpc.net, cps, [numer], -1)[0]
+            else:
+                msnp = mpc.net.recv_int(mpc.hub_pid)
+                nsnp_ct = 1 + (msnp - 1) // slots
+                denom = [None] * nsnp_ct
+                numer = [None] * nsnp_ct
+
+            with prof.span("score_ss"):
+                numer_ss = ss_he.cvec_to_ss(mpc, cps, numer, -1, slots * nsnp_ct)
+                denom_ss = ss_he.cvec_to_ss(mpc, cps, denom, -1, slots * nsnp_ct)
+                _, inv_sqrt = mpc.sqrt_and_sqrt_inverse(denom_ss, True)
+                t_stat = mpc.trunc(mpc.ss_mult_elem(numer_ss, inv_sqrt))
+                out = ss_he.ss_to_cmat(mpc, cps, t_stat[None])
+            if pid > 0:
+                results.extend(out[0])
+                fl = np.zeros(nsnp_ct * slots, bool)
+                fl[:msnp] = True
+                out_filt.append(fl)
+    if pid > 0:
+        return results, np.concatenate(out_filt)
     return None, None

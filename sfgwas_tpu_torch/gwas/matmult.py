@@ -21,7 +21,9 @@ host (preprocess_matrix_host, safe on a prefetch thread) and then on the
 device (finish_preprocess_matrix), multiplies it once and releases its
 plan; dc_matmul_aat_b is the distributed A A^T B over row-partitioned A;
 qx_lazy_norm_stream and qxt_lazy_norm_stream are the lazily normalised
-products of the PCA power iteration.
+products of the PCA power iteration; the cmult_mat_* helpers are the
+ciphertext-by-ciphertext products of the logistic path (slot masks and
+full-slot rotate-and-add sums).
 """
 
 from __future__ import annotations
@@ -965,4 +967,70 @@ def qxt_lazy_norm_stream(
     out = mhe.bootstrap_mat_all(mpc.net, cps, out)
     for i in range(len(out)):
         out[i] = B.cmult_with_const(cps, out[i], x_stdinv, post_scale)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Ciphertext-by-ciphertext products of the logistic path (the Go sfgwas's
+# gwas/matmult.go:1915-2066)
+
+
+def _add_low(cps, acc, x):
+    """acc + x at the lower level of the two (acc None: x)."""
+    if acc is None:
+        return x
+    nm = min(acc.nmod, x.nmod)
+    return cps.ctx.add(cps.ctx.drop_to(acc, nm), cps.ctx.drop_to(x, nm))
+
+
+def cmult_mat_inner_prod(cps, Cm, Wz):
+    """Row-packed C^T Wz: out[i] holds <C[i], Wz[j]> in slot j
+    (CMultMatInnerProd)."""
+    out = []
+    for i in range(len(Cm)):
+        acc = None
+        for j in range(len(Wz)):
+            ip = B.inner_prod(cps, Cm[i], Wz[j])  # the value in every slot
+            acc = _add_low(cps, acc, B.mask(cps, ip, j, False))
+        out.append([acc])
+    return out
+
+
+def cmult_mat_inner_prod_vector(cps, Cm, yv):
+    """Packed C^T y: slot i holds <C[i], y> (CMultMatInnerProdVector)."""
+    acc = None
+    for i in range(len(Cm)):
+        acc = _add_low(cps, acc, B.mask(cps, B.inner_prod(cps, Cm[i], yv), i, False))
+    return [acc]
+
+
+def add_vec_low(cps, acc, x):
+    """acc + x, ciphertext by ciphertext, at the lower level of the two
+    (acc None: x)."""
+    if acc is None:
+        return x
+    nm = min(acc[0].nmod, x[0].nmod)
+    return [cps.ctx.add(cps.ctx.drop_to(a, nm), cps.ctx.drop_to(b, nm)) for a, b in zip(acc, x)]
+
+
+def cmult_mat_col_times_col_to_col(cps, Cm, packed, n_ct):
+    """sum_i C[i] * packed[slot i] as a column vector
+    (CMultMatColTimesColToCol)."""
+    out = None
+    for i in range(len(Cm)):
+        w_i = B.rotate_and_add(cps, B.mask(cps, packed[0], i, False), cps.slots)
+        out = add_vec_low(cps, out, B.cmult_scalar(cps, Cm[i], w_i))
+    return out
+
+
+def cmult_mat_col_times_row_to_col(cps, Wz, M, ncols):
+    """Column-encrypted Wz (n x c) times row-packed M (c x c): column k is
+    sum_j Wz[j] * M[j][slot k] (CMultMatColTimesRowToCol)."""
+    out = []
+    for k in range(ncols):
+        acc = None
+        for j in range(len(Wz)):
+            mjk = B.rotate_and_add(cps, B.mask(cps, M[j][0], k, False), cps.slots)
+            acc = add_vec_low(cps, acc, B.cmult_scalar(cps, Wz[j], mjk))
+        out.append(acc)
     return out

@@ -5,14 +5,15 @@ Phase1/2/3, SyncAndTerminate).
 
 Ported: the in-process transport and the TCP mesh, both genotype input
 formats, the three QC routes (skip, cached filter, precomputed counts or the
-scan), phase 2 (PCA, its cached PCs, or skip_pca) and the linear phase 3.
-Each part not ported yet raises NotImplementedError naming the ROADMAP item
-that brings it: logistic association (A10) and within-party sharding
-(A11); net_qr names A9c for the Householder QR.
+scan), phase 2 (PCA, its cached PCs, or skip_pca) and phase 3, linear or
+logistic (use_logistic).  Each part not ported yet raises
+NotImplementedError naming the ROADMAP item that brings it: within-party
+sharding (A11); net_qr names A9c for the Householder QR.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import List
@@ -424,10 +425,6 @@ class ProtocolInfo:
         gp = self.gwas_params
         self.net.reset_log()
         pid = self.pid
-        if cfg.use_logistic:
-            raise NotImplementedError(
-                "logistic association (use_logistic) is not ported yet (ROADMAP A10)"
-            )
 
         # SNP-axis streaming (gwas/matmult.go:1238-1316): lazy views, so each
         # block is read, encoded, multiplied and dropped one at a time
@@ -444,6 +441,9 @@ class ProtocolInfo:
                 streams = [self.geno_blocks[i] for i in cfg.blocks_for_assoc_test]
             blocks = [fs.LazyBlock(b) for b in streams if b.num_cols_to_keep() > 0]
 
+        if cfg.use_logistic:
+            return self._phase3_logistic(qpc, blocks)
+
         stats, filt = assoc_mod.get_association_stats(
             self.mpc,
             self.cps,
@@ -459,8 +459,42 @@ class ProtocolInfo:
             num_blocks_parallel=cfg.assoc_num_blocks_parallel,
             debug=cfg.debug,
         )
+        return self._write_stats(stats, filt)
 
+    def _phase3_logistic(self, qpc, blocks):
+        """Logistic association: Newton on the covariates alone, then the
+        per-SNP score test (the useLogistic path, gwas/assoc.go:955-1476)."""
+        cfg = self.config
+        gp = self.gwas_params
+        pid = self.pid
+        nrows_all = [0] + list(gp.num_filt_inds[1:])
+        tot_n = sum(nrows_all[1:])
+        approx = (cfg.A, cfg.B, cfg.degree)
+
+        Q, ncols = assoc_mod.compute_combined_q(
+            self.mpc, self.cps, self.cov if pid > 0 else gp.num_covs, qpc, nrows_all,
+            cov_all_ones=cfg.cov_all_ones, qr_method=cfg.qr_method,
+        )
         if pid > 0:
+            # the basis' columns carry norm sqrt(n): Cm is orthonormal
+            Cm = B.cmult_const_mat(self.cps, Q, 1.0 / math.sqrt(tot_n), rescale=True)
+            Cm = mhe.bootstrap_mat_all(self.net, self.cps, Cm)
+            y = self.pheno.reshape(-1)
+        else:
+            Cm, y = ncols, None
+
+        weights = assoc_mod.lr_newton_cov_only(
+            self.mpc, self.cps, Cm, y, cfg.epochs, nrows_all, approx, cfg.inverse_mat_scale
+        )
+        stats, filt = assoc_mod.gwy_score_test(
+            self.mpc, self.cps, Cm, blocks, y, weights, approx, nrows_all, cfg.inverse_mat_scale
+        )
+        return self._write_stats(stats, filt)
+
+    def _write_stats(self, stats, filt):
+        """The statistics decrypted collectively at the data parties, the
+        filter's SNPs written to assoc.txt."""
+        if self.pid > 0:
             pts = mhe.collective_decrypt_many(self.net, self.cps, stats, -1)
             vals = [self.cps.ctx.decode(pt) for pt in pts]
             out = np.concatenate(vals)[: len(filt)][filt]

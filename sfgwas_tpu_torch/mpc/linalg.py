@@ -1,9 +1,10 @@
 """Secret-shared linear algebra (counterpart of sfgwas_tpu/mpc/linalg.py):
 the Householder vector, the square QR, the symmetric tridiagonalisation,
 the shifted-QR eigendecomposition and the oblivious row sort that PCA runs
-on its kp x kp Gram matrix (the Go sfgwas's mpc/mpc.go:2276-2636), and the
+on its kp x kp Gram matrix (the Go sfgwas's mpc/mpc.go:2276-2636), the
 Cholesky whitener of a shared Gram matrix that the CholeskyQR of the
-covariate basis runs.  Matrices are digit arrays [r, c, nlimb]; the
+covariate basis runs, and the matrix inverses over the eigensolver
+(mpc/mpc.go:2795-2888) that the logistic path's Newton steps run.  Matrices are digit arrays [r, c, nlimb]; the
 routines run on small (k x k) matrices, so the round count dominates, and
 they keep the Go sfgwas's structure (its field comparison path inside the
 eigensolver, mpc/mpc.go:2310, 2804, included).
@@ -326,3 +327,49 @@ def chol_whiten(mpc: MPC, G):
         mpc.beaver_mult_elem(mtr, mtm, dr[:, None], dm[:, None])
     )
     return mpc.trunc(W, kb, fb)
+
+
+def _scale_rows(mpc: MPC, M, d, d_first: bool):
+    """diag(d) M: row i of the shared matrix times the shared d[i].  The
+    two Beaver partitions draw shared randomness, so their order is the
+    reference's at each caller (d_first: d's partition before M's)."""
+    if d_first:
+        dr, dm = mpc.beaver_partition(d)
+        mr, mm = mpc.beaver_partition(M)
+    else:
+        mr, mm = mpc.beaver_partition(M)
+        dr, dm = mpc.beaver_partition(d)
+    out = mpc.beaver_reconstruct(mpc.beaver_mult_elem(mr, mm, dr[:, None], dm[:, None]))
+    return mpc.trunc(out, mpc.data_bits, mpc.frac_bits)
+
+
+def matrix_inverse_sqrt_svd(mpc: MPC, A):
+    """B with B^T B = (A + A^T)^{-1} (mpc/mpc.go:2864-2888)."""
+    Ut, S = eigen_decomp(mpc, mpc.ring.add(A, np.swapaxes(A, 0, 1)))
+    _, s_sqrt_inv = mpc.sqrt_and_sqrt_inverse(S, False)
+    return _scale_rows(mpc, Ut, s_sqrt_inv, d_first=True)
+
+
+def matrix_inverse_sym_pos(mpc: MPC, A):
+    """(A^{-1}, A^{-1/2}) of a symmetric positive definite A
+    (mpc/mpc.go:2839-2862)."""
+    kb, fb = mpc.data_bits, mpc.frac_bits
+    Vt, L = eigen_decomp(mpc, A)
+    _, l_inv_sqrt = mpc.sqrt_and_sqrt_inverse(L, False)
+    a_inv_sqrt = _scale_rows(mpc, Vt, l_inv_sqrt, d_first=False)
+    a_inv = mpc.trunc(mpc.ss_mult_mat(np.swapaxes(a_inv_sqrt, 0, 1), a_inv_sqrt), kb, fb)
+    return a_inv, a_inv_sqrt
+
+
+def matrix_inverse_svd(mpc: MPC, A):
+    """The inverse of a square invertible shared matrix through the
+    eigendecomposition of its Gram matrix (MatrixInverseSVD,
+    mpc/mpc.go:2795-2838): A^{-1} = (A^T A)^{-1} A^T, with (A^T A)^{-1} =
+    W^T W for W = diag(1/sqrt(lambda)) V (no secure division)."""
+    kb, fb = mpc.data_bits, mpc.frac_bits
+    G = mpc.trunc(mpc.ss_mult_mat(np.swapaxes(A, 0, 1), A), kb, fb)
+    Vt, L = eigen_decomp(mpc, G)
+    _, l_inv_sqrt = mpc.sqrt_and_sqrt_inverse(L, False)
+    W = _scale_rows(mpc, Vt, l_inv_sqrt, d_first=True)
+    g_inv = mpc.trunc(mpc.ss_mult_mat(np.swapaxes(W, 0, 1), W), kb, fb)
+    return mpc.trunc(mpc.ss_mult_mat(g_inv, np.swapaxes(A, 0, 1)), kb, fb)

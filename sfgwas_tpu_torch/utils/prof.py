@@ -1,7 +1,9 @@
 """Opt-in wall-clock attribution for protocol hot spots.
 
 Enable with SFGWAS_PROF=1: `span("name")` contexts accumulate per-thread
-wall time; dump() prints totals.  Zero overhead when disabled.
+wall time; dump() prints totals, events() lists each span as it ended (in
+order, so a caller can split the totals per iteration).  Zero overhead when
+disabled.
 
 Device work runs asynchronously, so a span measures the host's enqueue time
 unless SYNC is set to a function that waits for the device (for example
@@ -25,6 +27,7 @@ def _acc():
     d = getattr(_local, "d", None)
     if d is None:
         d = _local.d = defaultdict(lambda: [0.0, 0])
+        _local.log = []
     return d
 
 
@@ -39,9 +42,11 @@ def _span(name: str):
     finally:
         if SYNC is not None:
             SYNC()
+        dt = time.time() - t0
         e = d[name]
-        e[0] += time.time() - t0
+        e[0] += dt
         e[1] += 1
+        _local.log.append((name, dt))
 
 
 def span(name: str):
@@ -51,6 +56,12 @@ def span(name: str):
 def totals() -> dict:
     """{span name: (seconds, count)} accumulated by this thread."""
     return {k: (v[0], v[1]) for k, v in _acc().items()}
+
+
+def events() -> list:
+    """[(span name, seconds)] of this thread, in the order the spans ended."""
+    _acc()
+    return list(_local.log)
 
 
 def dump(tag: str = ""):
@@ -68,3 +79,4 @@ def dump(tag: str = ""):
 def reset():
     if ENABLED:
         _acc().clear()
+        _local.log.clear()

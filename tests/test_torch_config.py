@@ -151,12 +151,6 @@ def test_skip_pca_phase2(tmp_path):
     assert prot.phase2() is None and prot.gwas_params.num_pcs == 0
 
 
-def test_logistic_names_a10(tmp_path):
-    prot = _dealer(_cfg(tmp_path, skip_pca=True, use_logistic=True))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A10"):
-        prot.phase3(None)
-
-
 def test_cli_needs_a_card_unless_told(tmp_path, monkeypatch):
     """With no --platform the CLI runs on the card: without one it raises
     before any party starts, as it does for --platform gpu."""
