@@ -97,7 +97,20 @@ Phases (any failed check raises; the exit code is then nonzero):
     after dividing by sqrt(2000), every ciphertext at one (nmod, scale).
     K1, K3 (the relinearisation and the rotation ladder), K4, K5 and K6
     are held bit for bit against their plain versions at every shape the
-    timed call launched them with, recorded at their wrappers, and timed;
+    timed call launched them with, recorded at their wrappers, and timed.
+    Then net_qr(method="householder") (gwas/qrfact.py::net_dqr_enc) runs
+    once on each of two inputs over the same 2 x 1000 rows: [ones |
+    covariates] (6 columns) and a N(0,1) matrix of 15 columns from --seed
+    (PCA's width at config/configGlobal.toml's 5 PCs and 10 oversampling
+    columns), every launch count set to 0 just before each and read
+    right after it, the kernels' inputs recorded at their wrappers
+    during each, party 1's spans synchronized (qr_sqsum, qr_aggz,
+    qr_ispos, qr_ss2he, qr_uvec_mul, qr_dcmm, qr_backward); each Q,
+    decrypted collectively and divided by sqrt(2000), within HH_TOL =
+    1e-4 of numpy's QR (each column with the sign of the Householder
+    one) and Q^T Q within 1e-4 of I; then K1 and K3-K6 against their
+    plain versions at every shape of each call that no earlier check
+    held;
  9. the linear association phase at PN14QP438, phases 1 and 3 of
     sfgwas_tpu/gwas/protocol.py driven by hand: three parties as threads on
     the card (run_parties as in phase 7) under collective keys from
@@ -130,7 +143,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     use_cached_combined_q, skip_pca) and paths in {pid} form, on data from
     --seed in a temporary directory removed at the end: per data party
     1000 individuals, 5 covariates and the first 2 of the config's 22
-    blocks, 9,092 SNPs (phase 9's generators; phase 11 runs 2).  Run
+    blocks, 9,092 SNPs (phase 9's generators; phase 11 runs 1).  Run
     1 is fresh, with every launch count set to 0 before it and read after
     it: all six kernels launched, K2 once a block at each data party and
     held bit for bit against its plain version on the same inputs right
@@ -144,8 +157,9 @@ Phases (any failed check raises; the exit code is then nonzero):
     per party, key-directory write seconds, peak device memory and peak
     host RSS are recorded; then K2 is timed at its first launch and K1,
     K3, K4, K5 and K6 are held against their plain versions at every shape
-    of run 1 that no earlier phase checked, recorded at their wrappers;
-11. the same study at 2 of the config's 22 blocks (9,092 SNPs) as three
+    of run 1 that no earlier phase checked, recorded at their wrappers.
+    After run 2 the same temporary directory holds phase 14's run;
+11. the same study at 1 of the config's 22 blocks (4,546 SNPs) as three
     party processes over loopback TCP: this script started
     again once a party (--party-run, PID in the environment, after this
     process built the six kernels, the ring engine and the transport
@@ -154,7 +168,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     and its own local config and no --platform, with phase 10's hooks and
     cpu_count // 3 OpenMP threads.  Run 1 is fresh: every party's launch
     counts set to 0 before and read after its run, all six kernels
-    launched, K2 twice at each data party and held bit for bit against
+    launched, K2 once at each data party and held bit for bit against
     its plain version right after each launch in the process that launched
     it, the filter and the statistics held to the oracles; then, one party
     at a time, K1 and K3-K6 against their plain versions at every shape of
@@ -200,8 +214,8 @@ Phases (any failed check raises; the exit code is then nonzero):
     runs its study: config/configGlobalLogistic.toml's flags (PN14QP438, its
     QC thresholds and count route, use_cached_keys, skip_pca, use_logistic
     with the degree-62 sigmoid on [-10, 10] and inverse_mat_scale 10,000),
-    per data party 1000 individuals and 5 covariates, the first 2 of the
-    config's 22 blocks (9,092 SNPs) and 3 of its 15 Newton epochs, phase
+    per data party 1000 individuals and 5 covariates, the first of the
+    config's 22 blocks (4,546 SNPs) and 2 of its 15 Newton epochs, phase
     9's genotype and count generators with a binary phenotype from a
     logistic model over the covariates and 3 planted SNPs.  One fresh run
     (the logistic phase keeps no cache of its own): launch counts set to 0
@@ -211,7 +225,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     plain version right after each launch, party 1's spans synchronized on
     the card.  Checks: the filter equal to the QC oracle; the statistics
     finite, within 2e-2 (corr > 0.999) of an exact-sigmoid oracle of the
-    same 3 Newton epochs from zero weights and correlated above 0.99 with
+    same 2 Newton epochs from zero weights and correlated above 0.99 with
     the converged (50-epoch) one.  Then K2 is timed at its first launch at
     each row count and K1, K3, K4, K5 and K6 are held against their plain
     versions at every shape no earlier phase checked.  Recorded: the
@@ -220,7 +234,23 @@ Phases (any failed check raises; the exit code is then nonzero):
     test's preparation (score_prep) and per block (score_block:
     score_encode, score_mm, score_ss), the launch counts, peak device
     memory and host RSS;
-14. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+14. the skip-PCA study with qr_method = "householder": a third run of
+    phase 10's CLI study (run by phase 10 after its resumed run, on the
+    same data and config) with use_cached_combined_q = false on run 1's
+    key and QC caches, its basis and block-product caches removed first,
+    so that the covariate basis is net_dqr_enc's and the block products
+    are computed again; launch counts set to 0 before it and read after
+    it, K2 held bit for bit against its plain version right after each
+    launch, party 1's spans synchronized on the card.  Checks: every
+    bundle restored from the key cache, the filter equal to the QC oracle,
+    the statistics finite, within 2e-2 (corr > 0.999) of the plaintext
+    oracle and within 1e-3 of phase 10's run 1 (cholqr2), all six kernels
+    launched, K2 once a block at each data party.  Then K1 and K3-K6 are
+    held against their plain versions at every shape no earlier phase
+    checked.  Recorded: the command seconds, party 1's protocol line, its
+    combined_q and Householder spans, the launch counts, peak device
+    memory and host RSS;
+15. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
@@ -234,7 +264,8 @@ chiprun_out/sass_main_*.txt, party 1's assoc.txt of phase
 10's runs to chiprun_out/assoc_fresh.txt and chiprun_out/assoc_resumed.txt
 and of phase 11's to chiprun_out/assoc_tcp_{fresh,resumed}.txt and of
 phase 12's to chiprun_out/assoc_pca_{fresh,resumed}.txt and of phase 13's
-to chiprun_out/assoc_logistic.txt, and the logs of phase 11's parties to
+to chiprun_out/assoc_logistic.txt and of phase 14's to
+chiprun_out/assoc_householder.txt, and the logs of phase 11's parties to
 chiprun_out/tcp_{fresh,resumed}_party*.log.
 
 --pca-probe runs only pca_probe: phase 12's fresh study with collective
@@ -426,18 +457,28 @@ def _profile(torch, fn, path: str, all_threads: bool = False, labels=()) -> dict
     }
 
 
+# False while _collective_kernel_checks holds the shapes it does not time:
+# _check then compares the kernel with its plain version and times neither
+TIMING = True
+
+
 def _check(torch, kernels, name, kernel, source, replaces, shape, run, run_plain, reps, preps,
            nbytes, ops, timed=None):
     """Bit equality of run() and run_plain() (lists of tensors), then both
     timed; `timed` = (kernel, plain) callables to time instead.  `ms` is the
     kernel's device time per launch (torch.profiler), `call_ms` the CUDA-event
     time of one wrapper call, `plain_ms` the plain version's.  Appends the
-    kernel's record to `kernels`."""
+    kernel's record to `kernels` (with TIMING off, a record of the equality
+    alone)."""
     got, want = run(), run_plain()
     torch.cuda.synchronize()
     eq = all(_same(torch, a, b) for a, b in zip(got, want))
     err = 0 if eq else max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
     del got, want
+    if not TIMING:
+        kernels.append(dict(name=name, kernel=kernel, shape=shape, bit_equal=eq,
+                            max_abs_err=err, ms=None))
+        return
     fn, plain = timed or (run, run_plain)
     ms, traced, ms_from = _device_ms(torch, fn, reps, kernel)
     cms = _time_ms(torch, fn, reps)
@@ -478,7 +519,7 @@ def _k1_rows(torch, cuda_ntt, rns, basis, shapes, dev, kernels, per="launches_pe
         )
         kernels[-1][per] = per_call
         kernels[-1]["rows"] = list(rows)
-        total += per_call * kernels[-1]["ms"]
+        total += per_call * (kernels[-1]["ms"] or 0.0)
         del x
     return total
 
@@ -616,12 +657,13 @@ def _k4_check(torch, C, kernels, q, mu, sd, idx, b, logn, launch):
            4 * n_out, n_out * (2 * THREEFRY_OPS + BARRETT_OPS))
 
 
-def _k4_rows(torch, C, rec, basis, kernels) -> list:
+def _k4_rows(torch, C, rec, basis, kernels, found=None) -> list:
     """K4 against its plain version at every (batch, rows) that `rec`
-    recorded, on the recorded arguments, each with its launches; returns
-    the [batch, rows] of each."""
+    recorded (or at those of `found`, a part of them), on the recorded
+    arguments, each with its launches; returns the [batch, rows] of each."""
     shapes = []
-    for key, (q, mu, sd, idx, b, logn) in sorted(rec.args["uniform_mod"].items()):
+    found = rec.args["uniform_mod"] if found is None else found
+    for key, (q, mu, sd, idx, b, logn) in sorted(found.items()):
         _k4_check(torch, C, kernels, q, mu, sd, idx, b, logn, rec.real["uniform_mod"])
         kernels[-1]["launches_at_shape"] = rec.counts[("uniform_mod", key)]
         shapes.append([b, [basis.primes.index(int(v)) for v in q.view(-1).tolist()]])
@@ -811,18 +853,18 @@ def _k1_shape_key(shape) -> tuple:
 
 
 def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str,
-                              new_only: bool = False):
+                              new_only: bool = False, timed_per_kernel=None):
     """K1 (at every recorded direction, rows and shape, on random residues
     of the rows' primes), K4, K5 and K6 (on the recorded inputs) against
     their plain versions, each record tagged with `path` and its launches
-    there; with new_only, only at the shapes no earlier call checked.
-    Returns (K1's shapes, K1's total ms over the shapes checked, the shapes
-    --tree times)."""
-    from sfgwas_tpu_torch.crypto import ckks as C
-    from sfgwas_tpu_torch.mpc import mhe as PM
-    from sfgwas_tpu_torch.ops import cuda_ntt, rns
-
-    real, counts = rec.real, rec.counts
+    there; with new_only, only at the shapes no earlier call checked.  With
+    timed_per_kernel = n, each kernel is timed at its n shapes of the most
+    work (launches times elements) and only compared with its plain version
+    at the others, which leave their counts in `equal_only` instead of a
+    record.  Returns (K1's shapes, K1's total ms over the shapes timed, the
+    shapes --tree times, equal_only)."""
+    global TIMING
+    counts = rec.counts
     # K1 at every recorded (direction, rows, shape)
     k1_shapes = rec.k1_shapes()
     del rec.args["k1"]  # K1 is checked on random residues of the rows' primes
@@ -836,21 +878,73 @@ def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str,
             if new_only and (name, key) in CHECKED:
                 del found[key]
             CHECKED.add((name, key))
+    if timed_per_kernel is None:
+        k1_total, tree_shapes = _kernel_rows(torch, rec, todo, rec.args, launches, params,
+                                             kernels, path)
+        return k1_shapes, k1_total, tree_shapes, {}
+
+    def top(items, work):
+        return sorted(items, key=work, reverse=True)[:timed_per_kernel]
+
+    k1_top = {tuple(map(str, s)) for inv in (False, True) for s in
+              top([s for s in todo if s[0] == inv], lambda s: s[3] * int(np.prod(s[2])))}
+    sizes = {"ks_digit_product": lambda a: a[0].numel(), "uniform_mod": lambda a: a[4],
+             "bs_mask": lambda a: a[4], "bs_combine": lambda a: a[0].numel(),
+             "crt_lift": lambda a: a[0].numel()}
+    heavy, light = {}, {}
+    for name, found in rec.args.items():
+        keep = set(top(found, lambda k: counts[(name, k)] * sizes[name](found[k])))
+        heavy[name] = {k: v for k, v in found.items() if k in keep}
+        light[name] = {k: v for k, v in found.items() if k not in keep}
+    k1_total, tree_shapes = _kernel_rows(
+        torch, rec, [s for s in todo if tuple(map(str, s)) in k1_top], heavy, launches, params,
+        kernels, path)
+    compared: list = []
+    TIMING = False
+    try:
+        _kernel_rows(torch, rec, [s for s in todo if tuple(map(str, s)) not in k1_top], light,
+                     launches, params, compared, path)
+    finally:
+        TIMING = True
+    bad = [k["name"] for k in compared if not k["bit_equal"]]
+    if bad:
+        raise AssertionError(f"kernels differ from their plain versions on the {path} path: "
+                             f"{bad}")
+    equal_only = {}
+    for k in compared:
+        e = equal_only.setdefault(k["kernel"], {"shapes": 0, "bit_equal": 0,
+                                                "launches_at_shapes": 0})
+        e["shapes"] += 1
+        e["bit_equal"] += k["bit_equal"]
+        e["launches_at_shapes"] += k.get("launches_at_shape", 0)
+    _say(f"{path}: compared without timing {json.dumps(equal_only)}")
+    return k1_shapes, k1_total, tree_shapes, equal_only
+
+
+def _kernel_rows(torch, rec, todo, args, launches, params, kernels, path: str):
+    """The checks of _collective_kernel_checks at K1's shapes `todo` and at
+    the other kernels' recorded inputs `args` ({kernel: {key: arguments}}).
+    Returns (K1's total ms, the shapes --tree times)."""
+    from sfgwas_tpu_torch.crypto import ckks as C
+    from sfgwas_tpu_torch.mpc import mhe as PM
+    from sfgwas_tpu_torch.ops import cuda_ntt, rns
+
+    real, counts = rec.real, rec.counts
     first = len(kernels)
     k1_total = _k1_rows(torch, cuda_ntt, rns, params.basis, todo, torch.device("cuda", 0),
                         kernels, per="launches_at_shape")
     for k in kernels[first:]:
         k["launches"], k["path"] = launches[k["kernel"]], path
     _say(f"K1 over the {path} path: {k1_total:.4f} ms (sum of launches x ms) at "
-         f"{len(todo)} of its {len(k1_shapes)} shapes")
+         f"{len(todo)} shapes")
 
     # K4, K5 and K6 at every recorded shape
     N = params.n
     first = len(kernels)
-    k4_shapes = _k4_rows(torch, C, rec, params.basis, kernels)
+    k4_shapes = _k4_rows(torch, C, rec, params.basis, kernels, args["uniform_mod"])
     for k in kernels[first:]:
         k["launches"], k["path"] = launches["uniform_mod"], path
-    for key, (ext, k0, k1, q, mu, logn) in sorted(rec.args.get("ks_digit_product", {}).items()):
+    for key, (ext, k0, k1, q, mu, logn) in sorted(args.get("ks_digit_product", {}).items()):
         site, line = K3_SITES[key[0]]
         _k3_check(torch, C, kernels, f"ks_digit_product ({site})",
                   f"sfgwas_tpu/crypto/ckks.py:{line}", ext, k0, k1, q, mu, logn,
@@ -858,14 +952,14 @@ def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str,
         kernels[-1].update(launches=launches["ks_digit_product"], path=path,
                            launches_at_shape=counts[("ks_digit_product", key)])
     bs_shapes = []
-    for key, a in sorted(rec.args["bs_mask"].items()):
+    for key, a in sorted(args["bs_mask"].items()):
         tl, tf, sd, idx, b, nwords, top, logn = a
         _bs_mask_check(torch, PM, kernels, tl, tf, sd, idx, b, nwords, top, logn,
                        real["bs_mask"])
         kernels[-1].update(launches=launches["bs_mask"], path=path,
                            launches_at_shape=counts[("bs_mask", key)])
         bs_shapes.append([b, tl["rows"].tolist(), tf["rows"].tolist(), nwords, top])
-    for key, a in sorted(rec.args["bs_combine"].items()):
+    for key, a in sorted(args["bs_combine"].items()):
         b, L, _, Lf = key
         nbytes = 4 * N * (4 * b * (L + Lf) + L + Lf)  # 3 inputs + 1 output per residue, sk rows
         _check(torch, kernels, f"bs_combine {[b, L, Lf, N]}", "bs_combine",
@@ -876,14 +970,13 @@ def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str,
         kernels[-1].update(launches=launches["bs_combine"], path=path,
                            launches_at_shape=counts[("bs_combine", key)])
     crt_shapes = []
-    for key, (x, t) in sorted(rec.args["crt_lift"].items()):
+    for key, (x, t) in sorted(args["crt_lift"].items()):
         _crt_check(torch, rns, kernels, x, t, real["crt_lift"])
         kernels[-1].update(launches=launches["crt_lift"], path=path,
                            launches_at_shape=counts[("crt_lift", key)])
         crt_shapes.append([[params.basis.primes.index(int(v)) for v in t[r].tolist()]
                            for r in ("q", "p")] + [x.shape[1]])
-    return k1_shapes, k1_total, {"uniform_mod": k4_shapes, "bs_mask": bs_shapes,
-                                 "crt_lift": crt_shapes}
+    return k1_total, {"uniform_mod": k4_shapes, "bs_mask": bs_shapes, "crt_lift": crt_shapes}
 
 
 def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
@@ -1013,7 +1106,7 @@ def mhe_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         raise AssertionError(f"the bootstrap read {profiled['host_readbacks']} device values "
                              "back to the host")
 
-    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+    k1_shapes, k1_total, tree_shapes, _ = _collective_kernel_checks(
         torch, rec, launches, params, kernels, "mhe")
     return {
         "preset": preset, "parties": 3, "vectors": nvec, "low_nmod": low_nmod,
@@ -1322,7 +1415,7 @@ def ss_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     # the hub's he2ss_pull is the one sanctioned read-back: one a converted ciphertext
     if profiled["dtoh_copies"] > -(-(n_var - 1) // params.slots) + 1:
         raise AssertionError(f"the round trip copied {profiled['dtoh_copies']} tensors to the host")
-    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+    k1_shapes, k1_total, tree_shapes, _ = _collective_kernel_checks(
         torch, rec, launches, params, kernels, "ss")
     line.update(launches=launches, profile=profiled, k1_total_ms=k1_total, k1_shapes=k1_shapes,
                 tree_shapes=tree_shapes)
@@ -1391,10 +1484,17 @@ def _qr_parties(torch, seed: int, out_dir: str, n_loc: int = 1000, preset: str =
     kernels' inputs recorded at their wrappers, party 1's spans
     synchronized) and once under torch.profiler over all threads with the
     plain-torch programs labelled; then each data party's rows of the timed
-    Q are decrypted collectively.  Returns the parties' results, the state
-    party 1 kept and the covariates.  device=None is the card; device="cpu"
+    Q are decrypted collectively.  Then the Householder QR of each of
+    householder_inputs' matrices, timed once (launch counts set to 0 just
+    before and read right after each, the kernels' inputs recorded at
+    their wrappers during each, party 1's spans synchronized), each Q
+    decrypted collectively.
+    Returns the parties' results, the state party 1 kept, the covariates
+    and the Householder inputs.  device=None is the card; device="cpu"
     rehearses the protocol (at a small preset)."""
+    from sfgwas_tpu_torch.crypto import basics as B
     from sfgwas_tpu_torch.gwas.assoc import compute_combined_q
+    from sfgwas_tpu_torch.gwas.qrfact import net_qr
     from sfgwas_tpu_torch.mpc import mhe as PM
     from sfgwas_tpu_torch.ops import cuda_build
     from sfgwas_tpu_torch.parallel.simulate import run_parties
@@ -1404,6 +1504,7 @@ def _qr_parties(torch, seed: int, out_dir: str, n_loc: int = 1000, preset: str =
     rng = np.random.default_rng(seed + 3)
     cov = rng.normal(size=(2 * n_loc, ncov)) * np.array([1.0, 20.0, 0.1, 50.0, 0.3])
     nrows_all = [0, n_loc, n_loc]
+    hh_inputs = householder_inputs(seed, cov)
     gate = threading.Barrier(3)
     cuda = device is None or torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -1455,10 +1556,8 @@ def _qr_parties(torch, seed: int, out_dir: str, n_loc: int = 1000, preset: str =
             gate.wait(timeout=900)
             basis(mpc, cps)
             gate.wait(timeout=900)
-        # each data party's rows of Q, decrypted collectively
-        if pid > 0:
-            out["levels"] = sorted({(ct.nmod, ct.scale) for col in Q for ct in col})
-            out["ncols"] = len(Q)
+        def decrypted(Q):
+            """Each data party's rows of Q, decrypted collectively."""
             blocks = []
             for p in (1, 2):
                 nct = -(-nrows_all[p] // cps.slots)
@@ -1466,16 +1565,56 @@ def _qr_parties(torch, seed: int, out_dir: str, n_loc: int = 1000, preset: str =
                 pts = PM.collective_decrypt_many(mpc.net, cps, cts, p)
                 vals = np.stack([cps.ctx.decode(pt) for pt in pts]).reshape(len(Q), -1)
                 blocks.append(vals[:, : nrows_all[p]].T)
-            out["Q"] = np.concatenate(blocks)
+            return np.concatenate(blocks)
+
+        if pid > 0:
+            out["levels"] = sorted({(ct.nmod, ct.scale) for col in Q for ct in col})
+            out["ncols"] = len(Q)
+            out["Q"] = decrypted(Q)
+        # the Householder QR of each input, timed once: every launch count
+        # set to 0 just before and read right after, the kernels' inputs
+        # recorded at their wrappers over both calls, party 1's spans
+        # synchronized
+        out["householder"] = {}
+        for name, mat in hh_inputs.items():
+            k = mat.shape[1]
+            loc = mat[(pid - 1) * n_loc : pid * n_loc] if pid > 0 else None
+            A = ([B.encrypt_float_vector(cps, loc[:, j]) for j in range(k)] if pid > 0
+                 else [None] * k)
+            sync()
+            gate.wait(timeout=900)
+            if pid == 1:
+                state.setdefault("hh_rec", {})[name] = _collective_recorder(k3=True)
+                cuda_build.reset_launch_counts()
+                prof.ENABLED, prof.SYNC = True, (torch.cuda.synchronize if cuda else None)
+            gate.wait(timeout=900)
+            prof.reset()
+            t0 = time.time()
+            Q = net_qr(cps, mpc, A, nrows_all, method="householder")
+            sync()
+            hh = {"call_s": time.time() - t0, "spans": prof.totals()}
+            gate.wait(timeout=900)
+            if pid == 1:
+                state.setdefault("hh_launches", {})[name] = {
+                    kk: v.launches for kk, v in cuda_build.REGISTRY.items()}
+                state["hh_rec"][name].restore()
+                prof.ENABLED, prof.SYNC = False, None
+            gate.wait(timeout=900)
+            if pid > 0:
+                hh["levels"] = sorted({(ct.nmod, ct.scale) for col in Q for ct in col})
+                hh["ncols"] = len(Q)
+                hh["Q"] = decrypted(Q)
+            out["householder"][name] = hh
         return out
 
     try:
         res = run_parties(3, party, timeout=1500)
     finally:
         prof.ENABLED, prof.SYNC = False, None
-        if "rec" in state:
-            state["rec"].restore()
-    return res, state, cov
+        for rec in [state.get("rec")] + list(state.get("hh_rec", {}).values()):
+            if rec is not None:
+                rec.restore()
+    return res, state, cov, hh_inputs
 
 
 # Phase 8's limit on |Q^T Q - I| and |Q - numpy's Q|.  An entry of Q is
@@ -1483,6 +1622,45 @@ def _qr_parties(torch, seed: int, out_dir: str, n_loc: int = 1000, preset: str =
 # off in scale by a percent; CKKS at PN14QP438 leaves errors near 1e-8, and
 # 1e-5 still fails a scale error of a permille (2.2e-5 an entry).
 QR_TOL = 1e-5
+
+
+# Phase 8's limit for the Householder QR (the reference's contract is 2e-2)
+HH_TOL = 1e-4
+# the width of phase 8's second Householder input: PCA's kp at
+# config/configGlobal.toml's 5 PCs and 10 oversampling columns
+HH_COLS = 15
+# The Householder QR launches each kernel at hundreds of shapes (its batches
+# shrink a column at a time): each kernel is timed at this many of its new
+# shapes, those of the most work, and compared with its plain version at
+# every other new shape (the whole script runs within its 1,200 s)
+HH_TIMED_SHAPES = 1
+# party 1's spans of the Householder QR (gwas/qrfact.py::net_dqr_enc)
+HH_SPANS = ("qr_sqsum", "qr_aggz", "qr_ispos", "qr_ss2he", "qr_uvec_mul", "qr_dcmm",
+            "qr_backward")
+
+
+def householder_inputs(seed: int, cov: np.ndarray) -> dict:
+    """Phase 8's two Householder inputs over all 2 x n_loc rows: [ones |
+    covariates] (the combined basis' input) and a N(0,1) matrix of HH_COLS
+    columns from the seed."""
+    n = cov.shape[0]
+    rng = np.random.default_rng(seed + 4)
+    return {"basis": np.column_stack([np.ones(n), cov]),
+            "gaussian": rng.normal(size=(n, HH_COLS))}
+
+
+def householder_check(Qn: np.ndarray, a: np.ndarray) -> dict:
+    """A Householder Q (scaled by sqrt(N)) against numpy's QR of a: Q^T Q /
+    N - I and Q / sqrt(N) - numpy's Q, each column of numpy's given the sign
+    of the Householder one (the QR of a full-rank matrix is unique up to
+    those signs)."""
+    n = a.shape[0]
+    q, _ = np.linalg.qr(a)
+    Q = Qn / np.sqrt(n)
+    sign = np.where(np.sum(Q * q, axis=0) < 0, -1.0, 1.0)
+    return {"ortho_err": float(np.abs(Q.T @ Q - np.eye(Q.shape[1])).max()),
+            "qr_err": float(np.abs(Q - q * sign).max()), "finite": bool(np.isfinite(Q).all()),
+            "negated_columns": int((sign < 0).sum())}
 
 
 def qr_check(res, cov) -> dict:
@@ -1507,13 +1685,14 @@ def qr_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     """Phase 8: the CholeskyQR2 covariate basis (compute_combined_q) at
     PN14QP438 for three parties on the card at the example's size, then K1,
     K3, K4, K5 and K6 against their plain versions at every shape the timed
-    call launched them with.  Appends the kernels' records to `kernels`;
+    call launched them with; then the two Householder QRs, held to numpy,
+    and the kernels at their new shapes.  Appends the kernels' records to `kernels`;
     returns the phase's record."""
     from sfgwas_tpu_torch.crypto.params import get_params
 
     params = get_params("PN14QP438")
     t0 = time.time()
-    res, state, cov = _qr_parties(torch, seed, out_dir)
+    res, state, cov, hh_inputs = _qr_parties(torch, seed, out_dir)
     t_phase = time.time() - t0
     rec, launches = state["rec"], state["launches"]
     hub = res[1]
@@ -1546,10 +1725,47 @@ def qr_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     if profiled["host_threads"] < 2:
         raise AssertionError("the QR's profile traced one thread: party 2's host operations "
                              "are missing")
-    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+    k1_shapes, k1_total, tree_shapes, _ = _collective_kernel_checks(
         torch, rec, launches, params, kernels, "qr")
     line.update(launches=launches, profile=profiled, k1_total_ms=k1_total, k1_shapes=k1_shapes,
                 tree_shapes=tree_shapes)
+
+    # the Householder QRs: each within HH_TOL of numpy, then every kernel at
+    # each shape of the two calls that no earlier check held
+    hh_launches = state["hh_launches"]
+    hh_line = {}
+    for name, a in hh_inputs.items():
+        spans = {k: v[0] for k, v in hub["householder"][name]["spans"].items()}
+        hh_line[name] = {
+            "columns": a.shape[1], "call_s_party1": hub["householder"][name]["call_s"],
+            "call_s_party2": res[2]["householder"][name]["call_s"],
+            "span_s_party1": {k: spans.get(k, 0.0) for k in HH_SPANS},
+            "other_span_s_party1": {k: v for k, v in spans.items() if k not in HH_SPANS},
+            "launches": hh_launches[name],
+            "checks": {pid: dict(householder_check(res[pid]["householder"][name]["Q"], a),
+                                 levels=res[pid]["householder"][name]["levels"],
+                                 ncols=res[pid]["householder"][name]["ncols"])
+                       for pid in (1, 2)},
+        }
+    _say(f"qr phase, householder: {json.dumps(hh_line)}")
+    for name, h in hh_line.items():
+        for pid, c in h["checks"].items():
+            if (not c["finite"] or not c["ortho_err"] <= HH_TOL or not c["qr_err"] <= HH_TOL
+                    or c["ncols"] != h["columns"]):
+                raise AssertionError(f"householder {name}, party {pid}: {c}")
+        missing = [k for k in QR_PATH if h["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the householder QR ({name}): "
+                                 f"{missing}")
+    for name in hh_inputs:
+        hk1_shapes, hk1_total, hh_tree, equal_only = _collective_kernel_checks(
+            torch, state["hh_rec"].pop(name), hh_launches[name], params, kernels,
+            f"qr_householder_{name}", new_only=True, timed_per_kernel=HH_TIMED_SHAPES)
+        for key, found in hh_tree.items():
+            tree_shapes[key] += [x for x in found if x not in tree_shapes[key]]
+        hh_line[name].update(k1_new_shapes_timed_total_ms=hk1_total, k1_shapes=hk1_shapes,
+                             compared_without_timing=equal_only)
+    line["householder"] = hh_line
     return line
 
 
@@ -1904,7 +2120,7 @@ def assoc_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         kernels[-1].update(launches=launches["mac_dense"], path="assoc",
                            launches_at_shape=rec.counts[("mac_dense", key)])
         torch.cuda.empty_cache()
-    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+    k1_shapes, k1_total, tree_shapes, _ = _collective_kernel_checks(
         torch, rec, launches, params, kernels, "assoc")
     line.update(launches=launches, profile=profiled, k1_total_ms=k1_total, k1_shapes=k1_shapes,
                 tree_shapes=tree_shapes, phase_s=time.time() - t0, calls_s=t_calls)
@@ -1916,12 +2132,17 @@ def assoc_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
 
 # config/configGlobal.toml's SNP axis: 100,000 SNPs in 22 blocks, 21 of 4,546
 STUDY_BLOCKS = [4546] * 21 + [4534]
-# phase 10's and phase 11's cut of that axis: its first 2 blocks
+# phase 10's cut of that axis: its first 2 blocks; phase 11's: its first
+# block (cut from 2 to make room for phase 8's and 14's Householder QRs)
 STUDY_LOCAL_BLOCKS = STUDY_BLOCKS[:2]
-TCP_BLOCKS = STUDY_BLOCKS[:2]
+TCP_BLOCKS = STUDY_BLOCKS[:1]
 STUDY_RESUME_TOL = 2e-3  # tests/test_e2e_gwas.py:222
 # the configuration's flags: the preset, the thresholds, the QC route and the caches
 STUDY_CONFIG = "config/configGlobalSkipPCA.toml"
+# phase 14's run: the Householder basis on phase 10's key and QC caches
+HOUSEHOLDER_FLAGS = {"qr_method": "householder", "use_cached_keys": True, "use_cached_qc": True,
+                     "use_cached_combined_q": False}
+HOUSEHOLDER_TOL = 1e-3  # phase 14's statistics against phase 10's run 1 (cholqr2)
 
 
 class _StdoutLines:
@@ -2154,7 +2375,7 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: boo
 
 def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
                 platform=None, overrides=None, pca_snps=None, resume_flags=None,
-                logistic: bool = False):
+                logistic: bool = False, householder: bool = False):
     """The study's two CLI runs (cli.main with --local-sim 3, and with
     --platform only where given; platform=None is the card): the files and
     config from the seed in a temporary directory (removed at the end),
@@ -2168,7 +2389,11 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
     the card, each run's decrypted PCs read back); logistic makes phase
     13's (its data, one fresh run and no resumed one: the logistic phase
     keeps no cache of its own; the spans synchronized on the card).
-    Returns (the data, each run's record)."""
+    householder adds phase 14's run after the resumed one: the config with
+    qr_method = "householder" and use_cached_combined_q = false on run 1's
+    key and QC caches, its basis and block-product caches removed first
+    (checked as run 1 is, the spans synchronized on the card).  Returns
+    (the data, each run's record)."""
     import shutil
     import tempfile
 
@@ -2191,18 +2416,37 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
             with open(cfg) as f, open(cfgs["resumed"], "w") as g:
                 g.write(f.read() + "".join(f"{k} = {json.dumps(v)}\n"
                                            for k, v in resume_flags.items()))
-        for name in ("fresh",) if logistic else ("fresh", "resumed"):
-            fresh = name == "fresh"
+        if householder:
+            import tomllib
+
+            with open(cfg, "rb") as f:
+                hh_cfg = tomllib.load(f)
+            hh_cfg.update(HOUSEHOLDER_FLAGS)
+            cfgs["householder"] = os.path.join(tmp, "householder.toml")
+            with open(cfgs["householder"], "w") as f:
+                f.write("".join(f"{k} = {json.dumps(v)}\n" for k, v in hh_cfg.items()))
+        names = ("fresh",) if logistic else ("fresh", "resumed")
+        for name in names + (("householder",) if householder else ()):
+            checked = name in ("fresh", "householder")
+            if name == "householder":
+                # the basis (assoc_Qcomb.*) and the block products
+                # (assoc_assoc_*) are computed again; the keys and QC resume
+                for pid in (0, 1, 2):
+                    d = os.path.join(tmp, "cache", f"party{pid}")
+                    for fn in os.listdir(d):
+                        if fn.startswith("assoc_"):
+                            os.remove(os.path.join(d, fn))
             argv = ["--local-sim", "3", "--config-global", cfgs[name]]
             if platform is not None:
                 argv += ["--platform", platform]
-            hooks, got = _study_hooks(torch, k2_inline=fresh, keep_rows=logistic)
-            rec = _collective_recorder(k3=True) if fresh else None
+            hooks, got = _study_hooks(torch, k2_inline=checked, keep_rows=logistic,
+                                      keep_first=name == "fresh")
+            rec = _collective_recorder(k3=True) if checked else None
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             prof.ENABLED = True
-            if cuda and (pca_snps or logistic):
+            if cuda and (pca_snps or logistic or name == "householder"):
                 prof.SYNC = torch.cuda.synchronize
             cuda_build.reset_launch_counts()
             try:
@@ -2285,7 +2529,7 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     """Phase 10: the linear skip-PCA study through the CLI, cli.main with
     --local-sim 3 and no --platform (the card), at the example's width: 2 x
     1000 individuals, 5 covariates, config/configGlobalSkipPCA.toml's flags,
-    and the first 2 of its 22 SNP blocks (9,092 SNPs; phase 11 too);
+    and the first 2 of its 22 SNP blocks (9,092 SNPs);
     run 1 fresh, run 2 resumed from its caches (_study_runs).  Then K2
     timed at its first launch and every other kernel at each shape of run 1
     that no earlier phase checked.  Appends the kernels' records to
@@ -2298,7 +2542,9 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.time()
     data, runs = _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, STUDY_CONFIG),
-                             overrides={"num_snps": int(sum(sizes))})
+                             overrides={"num_snps": int(sum(sizes))}, householder=True)
+    hh = {"data": data, "run": runs.pop("householder"), "n_loc": n_loc, "sizes": sizes,
+          "cholqr2_stats": runs["fresh"]["stats"]}
     checks = study_check(data, runs, n_loc, sizes)
     fresh, resumed = runs["fresh"], runs["resumed"]
     k2 = fresh["k2"]
@@ -2364,10 +2610,96 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
                        launches_at_shape=1, inline_equal_launches=k2["equal"])
     del R0, R1, polys, mruns
     torch.cuda.empty_cache()
-    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+    k1_shapes, k1_total, tree_shapes, _ = _collective_kernel_checks(
         torch, rec, fresh["launches"], params, kernels, "study", new_only=True)
     del rec
     line.update(k1_new_shapes_total_ms=k1_total, k1_shapes=k1_shapes, tree_shapes=tree_shapes,
+                phase_s=time.time() - t_phase)
+    return line, hh
+
+
+def householder_study_check(hh: dict) -> dict:
+    """Phase 14's filters against the QC oracle, its statistics against
+    the plaintext oracle and against phase 10's run 1 (cholqr2, the same
+    data and keys)."""
+    data, run, n_loc = hh["data"], hh["run"], hh["n_loc"]
+    want_keep = assoc_qc_oracle(data, ASSOC_FILTER, n_loc)
+    want = assoc_stat_oracle(data, want_keep)
+    checks = {"filter_equal": {p: bool(np.array_equal(run["keep"][p], want_keep))
+                               for p in (1, 2)}}
+    for pid in (1, 2):
+        got, chol = run["stats"][pid], hh["cholqr2_stats"][pid]
+        ok = got.shape == want.shape == chol.shape
+        checks[pid] = {
+            "finite": bool(np.isfinite(got).all()),
+            "max_abs_err": float(np.abs(got - want).max()) if ok else None,
+            "corr": float(np.corrcoef(got, want)[0, 1]) if ok else None,
+            "cholqr2_max_abs_diff": float(np.abs(got - chol).max()) if ok else None,
+        }
+    return checks
+
+
+def householder_study_phase(torch, hh: dict, kernels: list) -> dict:
+    """Phase 14: the skip-PCA study with qr_method = "householder" through
+    the CLI, run by phase 10's _study_runs after its resumed run (the keys
+    and QC resumed from run 1's caches, the covariate basis and the block
+    products computed again).  Checks it, then holds every kernel against
+    its plain version at each shape of the run that no earlier phase
+    checked.  Appends the kernels' records to `kernels`; returns the
+    phase's record."""
+    from sfgwas_tpu_torch.crypto.params import get_params
+
+    params = get_params("PN14QP438")
+    t_phase = time.time()
+    run, sizes = hh["run"], hh["sizes"]
+    checks = householder_study_check(hh)
+    k2 = run["k2"]
+    spans = run["spans_party1_host_clock"] or {}
+    line = {
+        "individuals": [0, hh["n_loc"], hh["n_loc"]], "covariates": 5, "snps": int(sum(sizes)),
+        "blocks": len(sizes), "config": STUDY_CONFIG, "flags": HOUSEHOLDER_FLAGS,
+        "run": "a third run of phase 10's _study_runs, after its resumed run: the keys and "
+               "the QC filter restored from run 1's caches, the basis and the block products "
+               "computed again",
+        "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
+                    "blocks": [len(STUDY_BLOCKS), len(sizes)],
+                    "why": "time: the whole script runs within its 1,200 s"},
+        "checks": checks,
+        "k2_inline_checks": {k: k2[k] for k in ("launches", "equal", "check_s")},
+        "spans_party1_synchronized": {k: spans[k] for k in ("combined_q",) + HH_SPANS
+                                      if k in spans},
+    }
+    line.update({k: run[k] for k in (
+        "command_s", "protocol_party1", "protocol_party2", "init_s", "keys_from_cache",
+        "peak_device_bytes", "peak_host_rss_bytes", "launches")})
+    _say(f"householder study phase: {json.dumps(line)}")
+    for pid, eq in checks["filter_equal"].items():
+        if not eq:
+            raise AssertionError(f"householder run, party {pid}: the SNP filter differs from "
+                                 "the oracle")
+    for pid in (1, 2):
+        c = checks[pid]
+        if (not c["finite"] or c["max_abs_err"] is None or not c["max_abs_err"] <= ASSOC_STAT_TOL
+                or not c["corr"] > ASSOC_MIN_CORR
+                or not c["cholqr2_max_abs_diff"] <= HOUSEHOLDER_TOL):
+            raise AssertionError(f"householder party {pid}: statistics off: {c}")
+    missing = [k for k in ASSOC_PATH if run["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the householder run: {missing}")
+    nblocks = len(sizes)
+    if (run["launches"]["mac_dense"] != 2 * nblocks or k2["launches"] != 2 * nblocks
+            or k2["equal"] != k2["launches"]):
+        raise AssertionError(f"K2: {run['launches']['mac_dense']} launches, {k2['equal']} of "
+                             f"{k2['launches']} equal to its plain version; want {2 * nblocks}")
+    if sorted(run["keys_from_cache"]) != [0, 1, 2] or not all(run["keys_from_cache"].values()):
+        raise AssertionError(f"bundles from the key cache: {run['keys_from_cache']}")
+    rec = run.pop("rec")
+    k1_shapes, k1_total, tree_shapes, equal_only = _collective_kernel_checks(
+        torch, rec, run["launches"], params, kernels, "householder_study", new_only=True,
+        timed_per_kernel=HH_TIMED_SHAPES)
+    del rec
+    line.update(k1_new_shapes_timed_total_ms=k1_total, k1_shapes=k1_shapes,
+                compared_without_timing=equal_only, tree_shapes=tree_shapes,
                 phase_s=time.time() - t_phase)
     return line
 
@@ -2539,8 +2871,7 @@ def party_main(torch, args) -> int:
         peak_host_rss_bytes=rss.peak, launches=launches, k2=k2, net=totals(),
         omp_threads=os.environ.get("OMP_NUM_THREADS"), finished_at=time.time(),
     )
-    with open(os.path.join(d, f"run{pid}.json"), "w") as f:
-        json.dump(run, f)
+    _write_whole(os.path.join(d, f"run{pid}.json"), json.dumps(run))
     _say(f"party {pid} {args.party_run}: {json.dumps(run)}")
     if not (fresh and cuda):
         return 0
@@ -2555,7 +2886,7 @@ def party_main(torch, args) -> int:
     with open(go) as f:
         CHECKED.update(ast.literal_eval(f.read()))
     kernels: list = []
-    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+    k1_shapes, k1_total, tree_shapes, _ = _collective_kernel_checks(
         torch, rec, launches, get_params("PN14QP438"), kernels, f"tcp study party {pid}",
         new_only=True)
     with open(os.path.join(d, f"checks{pid}.json"), "w") as f:
@@ -2563,6 +2894,14 @@ def party_main(torch, args) -> int:
                    "k1_shapes": k1_shapes, "k1_total_ms": k1_total,
                    "tree_shapes": tree_shapes}, f)
     return 0
+
+
+def _write_whole(path: str, text: str):
+    """Writes text to path under another name first, then renames it: a
+    process polling for path never reads it half written."""
+    with open(path + ".part", "w") as f:
+        f.write(text)
+    os.replace(path + ".part", path)
 
 
 def _checked_repr() -> str:
@@ -2635,8 +2974,7 @@ def _tcp_run(name: str, d: str, cfgs: list, kernels: list, out_dir: str,
         stop.set()
         if name == "fresh" and platform is None:
             for pid, p in enumerate(procs):
-                with open(os.path.join(d, f"go{pid}.json"), "w") as f:
-                    f.write(_checked_repr())
+                _write_whole(os.path.join(d, f"go{pid}.json"), _checked_repr())
                 try:
                     p.wait(timeout=TCP_CHECK_TIMEOUT_S)
                 except subprocess.TimeoutExpired:
@@ -2999,7 +3337,7 @@ def pca_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
                        launches_at_shape=1, inline_equal_launches=k2["equal"])
     del R0, R1, polys, mruns
     torch.cuda.empty_cache()
-    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+    k1_shapes, k1_total, tree_shapes, _ = _collective_kernel_checks(
         torch, rec, fresh["launches"], params, kernels, "pca_study", new_only=True)
     del rec
     line.update(k1_new_shapes_total_ms=k1_total, k1_shapes=k1_shapes, tree_shapes=tree_shapes,
@@ -3191,8 +3529,14 @@ def pca_probe(torch, seed: int, out_dir: str, n_loc: int = 1000, sizes=PCA_BLOCK
 # 13. the logistic study through the CLI
 
 LOGISTIC_CONFIG = "config/configGlobalLogistic.toml"
-LOGISTIC_BLOCKS = STUDY_BLOCKS[:2]  # the first 2 of the config's 22 blocks
-LOGISTIC_EPOCHS = 3  # of the config's 15: tests/test_e2e_gwas.py:79's count
+# the first of the config's 22 blocks (cut from 2, with the epochs, to make
+# room for phase 8's and 14's Householder QRs)
+LOGISTIC_BLOCKS = STUDY_BLOCKS[:1]
+LOGISTIC_EPOCHS = 3  # tests/test_e2e_gwas.py:79's count
+# phase 13's Newton epochs, of the config's 15: cut from 3 to make room for
+# the Householder QRs of phases 8 and 14 (the phase still holds the
+# statistics to the converged oracle, corr > 0.99)
+LOGISTIC_RUN_EPOCHS = 2
 LOGISTIC_CONVERGED_EPOCHS = 50  # scripts/check_example_oracle.py:97
 LOGISTIC_TOL = 2e-2  # against the oracle of the same epochs
 LOGISTIC_MIN_CORR = 0.999
@@ -3279,11 +3623,11 @@ def logistic_study_check(data, runs, n_loc: int, epochs: int) -> dict:
 def _logistic_study_runs(torch, seed: int, out_dir: str, n_loc: int = 1000,
                          sizes=LOGISTIC_BLOCKS, platform=None, overrides=None):
     """Phase 13's CLI run (_study_runs on config/configGlobalLogistic.toml
-    with the epochs cut to LOGISTIC_EPOCHS; platform=None is the card).  A
+    with the epochs cut to LOGISTIC_RUN_EPOCHS; platform=None is the card).  A
     CPU rehearsal: platform="cpu" with a small n_loc and sizes and, in
     overrides, "ckks_params": "TEST8", num_inds and num_snps."""
     root = os.path.dirname(os.path.abspath(__file__))
-    fields = {"num_snps": int(sum(sizes)), "epochs": LOGISTIC_EPOCHS}
+    fields = {"num_snps": int(sum(sizes)), "epochs": LOGISTIC_RUN_EPOCHS}
     fields.update(overrides or {})
     return _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, LOGISTIC_CONFIG),
                        platform=platform, overrides=fields, logistic=True)
@@ -3318,7 +3662,7 @@ def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     config/configGlobalLogistic.toml's width: PN14QP438, QC from the counts
     at its thresholds, cached keys, skip_pca, the degree-62 sigmoid on
     [-10, 10], inverse_mat_scale 10,000, 2 x 1000 individuals, 5
-    covariates, the first 2 of the config's 22 blocks and 3 of its 15
+    covariates, the first of the config's 22 blocks and 2 of its 15
     Newton epochs; one fresh run.  Then K2 timed at its first launch at
     each row count (6: g^T W z B^T; 1: the squared block's g^T W g) and
     every other kernel at each shape of the run that no earlier phase
@@ -3331,17 +3675,17 @@ def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     n_loc, sizes = 1000, LOGISTIC_BLOCKS
     t_phase = time.time()
     data, runs = _logistic_study_runs(torch, seed, out_dir, n_loc, sizes)
-    checks = logistic_study_check(data, runs, n_loc, LOGISTIC_EPOCHS)
+    checks = logistic_study_check(data, runs, n_loc, LOGISTIC_RUN_EPOCHS)
     fresh = runs["fresh"]
     k2 = fresh["k2"]
     line = {
         "individuals": [0, n_loc, n_loc], "covariates": 5, "snps": int(sum(sizes)),
-        "blocks": len(sizes), "config": LOGISTIC_CONFIG, "epochs": LOGISTIC_EPOCHS,
+        "blocks": len(sizes), "config": LOGISTIC_CONFIG, "epochs": LOGISTIC_RUN_EPOCHS,
         "sigmoid": {"A": -10.0, "B": 10.0, "degree": 62}, "inverse_mat_scale": 10000.0,
         "phenotype": {"cov_effects": LOGISTIC_COV_EFFECTS, "snp_effects": LOGISTIC_SNP_EFFECTS},
         "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
                     "blocks": [len(STUDY_BLOCKS), len(sizes)],
-                    "epochs": [15, LOGISTIC_EPOCHS],
+                    "epochs": [15, LOGISTIC_RUN_EPOCHS],
                     "why": "time: the whole script runs within its 1,200 s"},
         "checks": checks, "data_s": fresh["data_s"],
         "k2_inline_checks": {k: k2[k] for k in ("launches", "equal", "check_s")},
@@ -3386,7 +3730,7 @@ def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         del R0, R1, polys, mruns
         torch.cuda.empty_cache()
     k2.pop("first", None)
-    k1_shapes, k1_total, tree_shapes = _collective_kernel_checks(
+    k1_shapes, k1_total, tree_shapes, _ = _collective_kernel_checks(
         torch, rec, fresh["launches"], params, kernels, "logistic_study", new_only=True)
     del rec
     line.update(k1_new_shapes_total_ms=k1_total, k1_shapes=k1_shapes, tree_shapes=tree_shapes,
@@ -3662,7 +4006,10 @@ def main() -> int:
     # ---- 9. the linear association phase
     assoc = assoc_phase(torch, args.seed, out_dir, kernels)
     # ---- 10. the study through the CLI, fresh and resumed
-    study = study_phase(torch, args.seed, out_dir, kernels)
+    study, hh = study_phase(torch, args.seed, out_dir, kernels)
+    # ---- 14. the Householder study, run inside phase 10 after its resumed run
+    householder_study = householder_study_phase(torch, hh, kernels)
+    del hh
     # ---- 11. the study as three party processes over loopback TCP
     tcp_study = tcp_study_phase(torch, args.seed, out_dir, kernels, sizes=TCP_BLOCKS,
                                 overrides={"num_snps": int(sum(TCP_BLOCKS))})
@@ -3674,7 +4021,8 @@ def main() -> int:
     # bs_mask's and K6's of the collective phases
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
               "crt_lift": []}
-    for phase in (mhe, ss, qr, assoc, study, tcp_study, pca_study, logistic_study):
+    for phase in (mhe, ss, qr, assoc, study, householder_study, tcp_study, pca_study,
+                  logistic_study):
         for key, found in phase.pop("tree_shapes").items():
             shapes[key] += [s for s in found if s not in shapes[key]]
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
@@ -3715,6 +4063,7 @@ def main() -> int:
         "tcp_study": tcp_study,
         "pca_study": pca_study,
         "logistic_study": logistic_study,
+        "householder_study": householder_study,
     }
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

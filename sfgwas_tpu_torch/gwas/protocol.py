@@ -6,9 +6,9 @@ Phase1/2/3, SyncAndTerminate).
 Ported: the in-process transport and the TCP mesh, both genotype input
 formats, the three QC routes (skip, cached filter, precomputed counts or the
 scan), phase 2 (PCA, its cached PCs, or skip_pca) and phase 3, linear or
-logistic (use_logistic).  Each part not ported yet raises
-NotImplementedError naming the ROADMAP item that brings it: within-party
-sharding (A11); net_qr names A9c for the Householder QR.
+logistic (use_logistic), with either covariate-basis QR (qr_method).
+The one part not ported yet, within-party sharding, raises
+NotImplementedError naming the ROADMAP item that brings it (A11).
 """
 
 from __future__ import annotations

@@ -134,16 +134,18 @@ def test_shard_matmult_names_a11(tmp_path):
 
 
 @pytest.mark.parametrize("fields", [{}, {"use_cached_pca": True}])
-def test_pca_names_a9(tmp_path, fields):
-    """PCA (A9) is ported: with use_cached_pca the dealer resumes from its
-    Qpc.done marker alone, and what is left of A9, the Householder QR that
-    qr_method = "householder" selects, raises naming A9c."""
+def test_pca_names_a9(tmp_path, fields, monkeypatch):
+    """PCA (A9) is ported, its Householder QR (A9c) too: the dealer takes
+    qr_method = "householder", with use_cached_pca it resumes from its
+    Qpc.done marker alone, and net_qr sends that method to net_dqr_enc."""
     prot = _dealer(_cfg(tmp_path, skip_pca=False, qr_method="householder", **fields))
     if fields:
         Path(prot.cache_path("Qpc.done")).write_text("1\n")
         assert prot.phase2() == [None] * prot.config.num_pcs_to_remove
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9c"):
-        PQR.net_qr(None, prot.mpc, [None], [0, 4, 4], method=prot.config.qr_method)
+    seen = []
+    monkeypatch.setattr(PQR, "net_dqr_enc", lambda *a: seen.append(a) or "Q")
+    assert PQR.net_qr(None, prot.mpc, [None], [0, 4, 4], method=prot.config.qr_method) == "Q"
+    assert seen == [(None, prot.mpc, [None], [0, 4, 4])]
 
 
 def test_skip_pca_phase2(tmp_path):

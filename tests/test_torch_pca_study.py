@@ -11,7 +11,9 @@ standardised pooled matrix, and a run resumed from the decrypted PCs
 (use_cached_pca, with the QC, basis and key caches) lies within 2e-2 of the
 fresh one.  Beside that, the statistics lie within 2e-2 (corr > 0.999) of
 the oracle that residualises on [1 | covariates | the run's own decrypted
-PCs], and qr_method = "householder" still raises NotImplementedError."""
+PCs], and the study with qr_method = "householder" (the Householder QR
+at every PCA QR and at the covariate basis) runs with PCs that span the
+top two."""
 
 import os
 
@@ -96,10 +98,27 @@ def test_resume_from_cached_pcs(fresh, monkeypatch):
 
 
 def test_householder_qr_is_not_ported(fresh, tmp_path):
-    """qr_method = "householder" reaches PCA's first QR and fails the run
-    there, naming the ROADMAP item that brings it."""
-    root, data, cache, out = fresh
-    cfg = write_config(str(tmp_path / "hh.toml"), root, cache, str(tmp_path / "out"), **PCA,
-                       use_cached_qc=True, qr_method="householder")
-    with pytest.raises(NotImplementedError, match="A9c"):
-        run_cli(cfg)
+    """Householder is ported now (the name is kept from when this test held
+    that it raised): the study with qr_method = "householder", whose every
+    PCA QR and covariate basis is net_dqr_enc, runs through the CLI, each of
+    the top two PCs of the standardised pooled matrix lies in span(Qpc) with
+    |cos| >= 0.9 (as tests/test_torch_pca.py::test_qpc_spans_top_pcs
+    requires), and the statistics meet the oracle on the run's own PCs."""
+    root, data, _, _ = fresh
+    cache, out = str(tmp_path / "cache"), str(tmp_path / "out")
+    run_cli(write_config(str(tmp_path / "hh.toml"), root, cache, out, **PCA,
+                         qr_method="householder"))
+    q = _qpc(cache)
+    assert q.shape == (24 + 20, NPC) and np.isfinite(q).all()
+    basis, _ = np.linalg.qr(q)
+    for pid in (1, 2):
+        got, gk = read_run(out, cache, pid)
+        G = np.concatenate([data[1][0], data[2][0]], axis=0).astype(float)[:, gk]
+        Gs = (G - G.mean(0)) / np.maximum(G.std(0), 1e-9)
+        u, _, _ = np.linalg.svd(Gs, full_matrices=False)
+        for k in range(NPC):
+            assert np.linalg.norm(basis.T @ u[:, k]) >= 0.9, (pid, k)
+        want = oracle_stats(data, gk, pcs=q)
+        assert got.shape == want.shape and np.isfinite(got).all()
+        assert np.abs(got - want).max() < STAT_TOL
+        assert np.corrcoef(got, want)[0, 1] > MIN_CORR

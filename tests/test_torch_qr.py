@@ -252,26 +252,28 @@ def test_combined_q_uniform_scale_and_level(case, combined):
 
 
 def test_qr_methods(case, ref_keys):
-    """net_qr: 'householder' needs the port's dc_matmul_aat_b and says so at
-    every party, an unknown method is refused, and 'cholqr3' (three passes)
-    still orthonormalizes."""
+    """net_qr: an unknown method is refused at every party, and
+    'householder' (net_dqr_enc) and 'cholqr3' (three passes) both
+    orthonormalize: Q^T Q = I within 2e-2 (Q scaled back by 1/sqrt(N))."""
     nrows = list(case.nrows)
     a_full = case.data()[0]
 
     def body(mpc, cps, m):
-        with pytest.raises(NotImplementedError, match="A9"):
-            PQ.net_qr(cps, mpc, [None], nrows, method="householder")
         with pytest.raises(AssertionError, match="unknown"):
             PQ.net_qr(cps, mpc, [None], nrows, method="lu")
-        if mpc.pid > 0:
-            loc = a_full[case.split[mpc.pid], :2]
-            A = [PB.encrypt_float_vector(cps, loc[:, j]) for j in range(2)]
-        else:
-            A = [None] * 2
-        Q = PQ.net_qr(cps, mpc, A, nrows, method="cholqr3")
-        return None if mpc.pid == 0 else _decrypt_blocks(mpc, cps, PORT, Q, nrows)
+        out = {}
+        for method in ("householder", "cholqr3"):
+            if mpc.pid > 0:
+                loc = a_full[case.split[mpc.pid], :2]
+                A = [PB.encrypt_float_vector(cps, loc[:, j]) for j in range(2)]
+            else:
+                A = [None] * 2
+            Q = PQ.net_qr(cps, mpc, A, nrows, method=method)
+            out[method] = None if mpc.pid == 0 else _decrypt_blocks(mpc, cps, PORT, Q, nrows)
+        return out
 
     res = _run("port", case, ref_keys, body)
     for pid in (1, 2):
-        Q = res[pid] / np.sqrt(case.n)
-        assert np.allclose(Q.T @ Q, np.eye(2), atol=2e-2)
+        for method, dec in res[pid].items():
+            Q = dec / np.sqrt(case.n)
+            assert np.allclose(Q.T @ Q, np.eye(2), atol=2e-2), (method, Q.T @ Q)
