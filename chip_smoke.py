@@ -183,16 +183,17 @@ Phases (any failed check raises; the exit code is then nonzero):
 12. the default-config study with PCA through the port's CLI, in this
     process as phase 10 runs its study: config/configGlobal.toml's flags
     (PN14QP438, its QC thresholds and count route, use_cached_keys, 5 PCs
-    with 10 oversampling columns, cholqr2, 5 shifted-QR iterations an
-    eigenvalue, snp_dist_thres 100,000), per data party 1000 individuals
-    and 5 covariates, the first 3 of the config's 22 blocks (13,638 SNPs)
-    and 1 of its 20 power iterations.  The genotypes come from three
+    with 10 oversampling columns, cholqr2, snp_dist_thres 100,000), per
+    data party 1000 individuals and 5 covariates, the first 2 of the
+    config's 22 blocks (9,092 SNPs), 1 of its 20 power iterations and 2 of
+    its 5 shifted-QR iterations an eigenvalue.  The genotypes come from three
     subpopulations (Balding-Nichols allele frequencies at F_ST = 0.05
     around phase 9's MAFs, each individual's subpopulation drawn
     uniformly) and the phenotype has 5 planted effects and a shift per
     subpopulation; the positions file spaces the SNPs so that LD pruning
-    keeps 10,000, which puts both PCA diagonal caches on the host-streamed
-    path.  Run 1 is fresh (launch counts set to 0 before it and read after
+    keeps up to 10,000 (all those QC keeps at 2 blocks), which puts both
+    PCA diagonal caches on the host-streamed path.  Run 1 is fresh (launch
+    counts set to 0 before it and read after
     it, K2 held bit for bit against its plain version right after each
     launch, party 1's spans synchronized on the card, the host chunks
     copied to the card counted); run 2 resumes from the decrypted PCs
@@ -215,7 +216,7 @@ Phases (any failed check raises; the exit code is then nonzero):
     QC thresholds and count route, use_cached_keys, skip_pca, use_logistic
     with the degree-62 sigmoid on [-10, 10] and inverse_mat_scale 10,000),
     per data party 1000 individuals and 5 covariates, the first of the
-    config's 22 blocks (4,546 SNPs) and 2 of its 15 Newton epochs, phase
+    config's 22 blocks (4,546 SNPs) and 1 of its 15 Newton epochs, phase
     9's genotype and count generators with a binary phenotype from a
     logistic model over the covariates and 3 planted SNPs.  One fresh run
     (the logistic phase keeps no cache of its own): launch counts set to 0
@@ -225,8 +226,9 @@ Phases (any failed check raises; the exit code is then nonzero):
     plain version right after each launch, party 1's spans synchronized on
     the card.  Checks: the filter equal to the QC oracle; the statistics
     finite, within 2e-2 (corr > 0.999) of an exact-sigmoid oracle of the
-    same 2 Newton epochs from zero weights and correlated above 0.99 with
-    the converged (50-epoch) one.  Then K2 is timed at its first launch at
+    same Newton epoch from zero weights (with the score test's numerator
+    g^T (y~ - o) as gwy_score_test computes it) and correlated above 0.99
+    with the converged (50-epoch) one.  Then K2 is timed at its first launch at
     each row count and K1, K3, K4, K5 and K6 are held against their plain
     versions at every shape no earlier phase checked.  Recorded: the
     command seconds, party 1's protocol line, its spans per Newton epoch
@@ -250,7 +252,31 @@ Phases (any failed check raises; the exit code is then nonzero):
     checked.  Recorded: the command seconds, party 1's protocol line, its
     combined_q and Householder spans, the launch counts, peak device
     memory and host RSS;
-15. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+15. within-party sharding, two logical shards of the one card
+    ([cuda:0, cuda:0]: every step of the sharded branch runs, the copies
+    between shards are no-ops), run right after phase 5 on phase 3's
+    block: (b) mat_mult_sharded over the two shards on phase 3's cache
+    (one block column), and on the block placed twice as two block
+    columns (a real split: column bj on slot bj % 2) unsharded, sharded
+    and through set_pipeline_devices with a plain mat_mult_cached call,
+    every output bit-identical to phase 3's; the two-column product timed
+    unsharded and sharded over 3 calls each, the sharded one also stage by
+    stage (synchronized spans) and traced (no device value read back),
+    with K1 and K3 held at its new shapes; (c) K2 at each shard slot's
+    launch against its plain version (the first timed, the other
+    compared).  And (d), a fourth run of phase 10's study after phase
+    14's: the resumed config with run 1's basis put back, the block
+    products computed again with every product routed over the two shards
+    (the config with shard_matmult = true, the protocol's local_devices
+    giving [cuda:0, cuda:0]; the routing reset after), then its unsharded
+    twin (the same caches, phase 3 seeded alike in both).  Checks: the
+    filter equal to the QC oracle; the statistics within 2e-2 (corr >
+    0.999) of the oracle and bit-equal to the twin's (their distance from
+    phase 10's resumed run, which draws its own masks, is recorded); the
+    block products' basis rows bit-equal to run 1's; every product
+    through the sharded branch, K2 held bit for bit at each launch, K1
+    and K3-K6 at every new shape;
+16. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
@@ -265,7 +291,9 @@ chiprun_out/sass_main_*.txt, party 1's assoc.txt of phase
 and of phase 11's to chiprun_out/assoc_tcp_{fresh,resumed}.txt and of
 phase 12's to chiprun_out/assoc_pca_{fresh,resumed}.txt and of phase 13's
 to chiprun_out/assoc_logistic.txt and of phase 14's to
-chiprun_out/assoc_householder.txt, and the logs of phase 11's parties to
+chiprun_out/assoc_householder.txt and of phase 15's routed run to
+chiprun_out/assoc_routed.txt, the sharded product's profile to
+chiprun_out/shard_profile.txt, and the logs of phase 11's parties to
 chiprun_out/tcp_{fresh,resumed}_party*.log.
 
 --pca-probe runs only pca_probe: phase 12's fresh study with collective
@@ -307,6 +335,7 @@ THREEFRY_OPS = 20 * 3 + 5 * 2 + 2 + 1
 BARRETT_OPS = 6  # a 64-bit Barrett reduction: umulhi, multiply, subtract, compare, select
 # the kernels of each path: a path that launches one of its kernels no time fails
 MM_PATH = ("ntt_fwd", "ntt_inv", "mac_dense", "ks_digit_product", "uniform_mod")
+SHARD_PATH = MM_PATH[:4]  # the products of phase 15, on keys already made
 MHE_PATH = ("ntt_fwd", "ntt_inv", "uniform_mod", "bs_mask", "bs_combine", "crt_lift")
 # each kernel's device function, as torch.profiler names it (a pattern)
 DEVICE_NAMES = {
@@ -432,8 +461,9 @@ def _profile(torch, fn, path: str, all_threads: bool = False, labels=()) -> dict
     readbacks = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
     dtoh = sum(1 for e in dev if "DtoH" in e.name)  # device -> host copies
     host_threads = len({e.thread for e in events if e.device_type != torch.autograd.DeviceType.CUDA})
+    averages = prof.key_averages()  # costs seconds on a party run's trace: made once
     with open(path, "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+        f.write(averages.table(sort_by="self_device_time_total", row_limit=60))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     port_ms = {sym: sum(v for k, v in by_name.items() if re.search(pat, k)) / 1e3
                for sym, pat in DEVICE_NAMES.items()}
@@ -444,7 +474,7 @@ def _profile(torch, fn, path: str, all_threads: bool = False, labels=()) -> dict
             "calls": len(hits),
             "device_ms": sum(getattr(e, "device_time_total", 0.0) for e in hits) / 1e3,
         }
-    ops = [(a.key, a.self_device_time_total / 1e3) for a in prof.key_averages()
+    ops = [(a.key, a.self_device_time_total / 1e3) for a in averages
            if a.key.startswith("aten::")]
     return {
         "port_kernel_ms": port_ms, "labelled_ms": labelled,
@@ -476,8 +506,9 @@ def _check(torch, kernels, name, kernel, source, replaces, shape, run, run_plain
     err = 0 if eq else max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
     del got, want
     if not TIMING:
+        bms, by = _bound_ms(nbytes, ops)
         kernels.append(dict(name=name, kernel=kernel, shape=shape, bit_equal=eq,
-                            max_abs_err=err, ms=None))
+                            max_abs_err=err, ms=None, bound_ms=bms, bound_by=by))
         return
     fn, plain = timed or (run, run_plain)
     ms, traced, ms_from = _device_ms(torch, fn, reps, kernel)
@@ -619,7 +650,8 @@ def _k3_site() -> str:
     raise AssertionError(f"K3 launched from no known site: {sorted(names)}")
 
 
-def _k2_check(torch, MM, kernels, name, launch, R0, R1, polys, runs, q, mu, logn, nacc: int):
+def _k2_check(torch, MM, kernels, name, launch, R0, R1, polys, runs, q, mu, logn, nacc: int,
+              replaces="sfgwas_tpu/gwas/matmult.py:504"):
     """K2 (`launch`) against its plain version on one block row's baby
     rotations R0, R1 [nb, s, nmod, N], its diagonal polys and runs, into
     zeroed accumulators of nacc rows (timed in place, as the product runs
@@ -634,8 +666,8 @@ def _k2_check(torch, MM, kernels, name, launch, R0, R1, polys, runs, q, mu, logn
                   + 2 * 2 * runs.nruns * s * nmod * N)  # ACC rows read and written
     macs = 2 * E * s * nmod * N
     _check(
-        torch, kernels, name, "mac_dense", "sfgwas_tpu_torch/csrc/mac_dense.cu",
-        "sfgwas_tpu/gwas/matmult.py:504", [runs.nruns, E, nb, s, nmod, N],
+        torch, kernels, name, "mac_dense", "sfgwas_tpu_torch/csrc/mac_dense.cu", replaces,
+        [runs.nruns, E, nb, s, nmod, N],
         lambda: launch(zeros(), zeros(), R0, R1, polys, runs, q, mu, logn),
         lambda: MM.mac_dense_plain(zeros(), zeros(), R0, R1, polys, runs, q),
         5, 1, nbytes, 2 * macs,
@@ -2271,7 +2303,9 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: boo
     bundle's keys_from_cache, each key-directory write timed, party 1's
     spans (prof on: the totals and each span as it ended), the calls of
     distributed_pca and the host chunks a host-streamed diagonal cache
-    materialised on the device (calls, bytes of hi and lo copied), and with
+    materialised on the device (calls, bytes of hi and lo copied), the
+    products that took the sharded branch (a plan's groups() asked for
+    shard devices), and with
     k2_inline every K2 launch held against its plain version on the same
     inputs right after it (bit equality, launches counted per row count of
     the product; with keep_first, the first launch's inputs are kept for the
@@ -2284,7 +2318,7 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: boo
     from sfgwas_tpu_torch.utils import prof
 
     hooks = _Patches()
-    got = {"init": {}, "save_s": [], "spans": None, "pca_calls": 0,
+    got = {"init": {}, "save_s": [], "spans": None, "pca_calls": 0, "sharded_products": 0,
            "streamed": {"calls": 0, "rows": 0, "h2d_bytes": 0},
            "k2": {"launches": 0, "equal": 0, "check_s": 0.0, "first": None, "by_rows": {},
                   "launches_by_rows": collections.Counter()}}
@@ -2295,6 +2329,14 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: boo
             with lock:
                 got["pca_calls"] += 1
             return real(*a, **k)
+        return wrapped
+
+    def sharded(real):
+        def wrapped(self, devices=None):
+            if devices:
+                with lock:
+                    got["sharded_products"] += 1
+            return real(self, devices)
         return wrapped
 
     def materialize(real):
@@ -2368,6 +2410,7 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: boo
     hooks.patch(GP.ProtocolInfo, "gwas", gwas)
     hooks.patch(PP, "distributed_pca", pca)
     hooks.patch(MM.DiagBlock, "materialize_rows", materialize)
+    hooks.patch(MM._MatmulPlan, "groups", sharded)
     if k2_inline:
         got["real_mac"] = hooks.patch(MM, "mac_dense", mac)
     return hooks, got
@@ -2375,7 +2418,7 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: boo
 
 def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
                 platform=None, overrides=None, pca_snps=None, resume_flags=None,
-                logistic: bool = False, householder: bool = False):
+                logistic: bool = False, householder: bool = False, routed: bool = False):
     """The study's two CLI runs (cli.main with --local-sim 3, and with
     --platform only where given; platform=None is the card): the files and
     config from the seed in a temporary directory (removed at the end),
@@ -2392,16 +2435,27 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
     householder adds phase 14's run after the resumed one: the config with
     qr_method = "householder" and use_cached_combined_q = false on run 1's
     key and QC caches, its basis and block-product caches removed first
-    (checked as run 1 is, the spans synchronized on the card).  Returns
-    (the data, each run's record)."""
+    (checked as run 1 is, the spans synchronized on the card).  routed adds
+    phase 15's run after that: the resumed config with run 1's key, QC and
+    basis caches (the basis saved before the householder run and put back),
+    the block products computed again, and every product routed over two
+    logical shards of the party's device (the config with shard_matmult =
+    true, the protocol's local_devices giving the two shards; the routing
+    reset after; checked as run 1 is), then its unsharded twin ("twin":
+    the same caches and config without shard_matmult); both draw phase
+    3's masks from the same seeds (_seeded_phase3).  Returns (the data, each
+    run's record)."""
     import shutil
     import tempfile
 
     from sfgwas_tpu_torch import cli
+    from sfgwas_tpu_torch.gwas import matmult as MM
+    from sfgwas_tpu_torch.gwas import protocol as GP
     from sfgwas_tpu_torch.ops import cuda_build
     from sfgwas_tpu_torch.utils import prof
 
     cuda = platform is None
+    shards = [torch.device("cuda", 0) if cuda else torch.device(platform)] * SHARD_DEVICES
     tag = "pca_" if pca_snps else "logistic_" if logistic else ""
     tmp = tempfile.mkdtemp(prefix="sfgwas_study_")
     runs: dict = {}
@@ -2425,17 +2479,38 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
             cfgs["householder"] = os.path.join(tmp, "householder.toml")
             with open(cfgs["householder"], "w") as f:
                 f.write("".join(f"{k} = {json.dumps(v)}\n" for k, v in hh_cfg.items()))
+        if routed:
+            cfgs["routed"] = os.path.join(tmp, "routed.toml")
+            with open(cfgs["resumed"]) as f, open(cfgs["routed"], "w") as g:
+                g.write(f.read() + "shard_matmult = true\n")
+            cfgs["twin"] = cfgs["resumed"]
         names = ("fresh",) if logistic else ("fresh", "resumed")
-        for name in names + (("householder",) if householder else ()):
-            checked = name in ("fresh", "householder")
-            if name == "householder":
-                # the basis (assoc_Qcomb.*) and the block products
-                # (assoc_assoc_*) are computed again; the keys and QC resume
+        names += ("householder",) if householder else ()
+        names += ("routed", "twin") if routed else ()
+        saved = os.path.join(tmp, "saved_basis")
+        for name in names:
+            checked = name in ("fresh", "householder", "routed")
+            if name in ("householder", "routed", "twin"):
+                # the block products (assoc_assoc_*) are computed again, and
+                # for householder the basis (assoc_Qcomb.*) too; the keys and
+                # QC resume.  run 1's basis is kept aside for the routed run
                 for pid in (0, 1, 2):
                     d = os.path.join(tmp, "cache", f"party{pid}")
+                    keep = os.path.join(saved, f"party{pid}")
+                    if not os.path.isdir(keep):  # run 1's basis and block products
+                        os.makedirs(os.path.join(keep, "products"))
+                        for fn in os.listdir(d):
+                            if fn.startswith("assoc_Qcomb"):
+                                shutil.copy(os.path.join(d, fn), keep)
+                            elif fn.startswith("assoc_assoc_"):
+                                shutil.copy(os.path.join(d, fn), os.path.join(keep, "products"))
                     for fn in os.listdir(d):
                         if fn.startswith("assoc_"):
                             os.remove(os.path.join(d, fn))
+                    if name in ("routed", "twin"):
+                        for fn in os.listdir(keep):
+                            if fn.startswith("assoc_Qcomb"):
+                                shutil.copy(os.path.join(keep, fn), d)
             argv = ["--local-sim", "3", "--config-global", cfgs[name]]
             if platform is not None:
                 argv += ["--platform", platform]
@@ -2446,8 +2521,14 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             prof.ENABLED = True
-            if cuda and (pca_snps or logistic or name == "householder"):
+            if cuda and (pca_snps or logistic or name in ("householder", "routed", "twin")):
                 prof.SYNC = torch.cuda.synchronize
+            if name == "routed":
+                # the party's local devices, as shard_matmult reads them
+                hooks.patch(GP, "local_devices", lambda real: lambda kind: list(shards))
+            if name in ("routed", "twin"):
+                # the same masks in both: their statistics must be the same bits
+                hooks.patch(GP.ProtocolInfo, "phase3", _seeded_phase3(seed))
             cuda_build.reset_launch_counts()
             try:
                 with _StdoutLines() as lines, _RssPeak() as rss:
@@ -2459,6 +2540,7 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
                     cmd_s = time.time() - t0
                 launches = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
             finally:
+                MM.set_pipeline_devices(None)
                 prof.ENABLED = False
                 prof.SYNC = None
                 hooks.restore()
@@ -2482,8 +2564,10 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
                 peak_device_bytes=torch.cuda.max_memory_allocated() if cuda else None,
                 peak_host_rss_bytes=rss.peak, launches=launches, stats=out, keep=keep, rec=rec,
                 k2=got["k2"], real_mac=got.get("real_mac"), pca_calls=got["pca_calls"],
-                streamed=got["streamed"],
+                streamed=got["streamed"], sharded_products=got["sharded_products"],
             )
+            if name == "routed":
+                runs[name]["products_vs_run1"] = _products_vs_kept(tmp, saved)
             if pca_snps:
                 runs[name]["qpc"] = np.concatenate([
                     np.loadtxt(os.path.join(tmp, "cache", f"party{pid}", "Qpc.txt"),
@@ -2494,6 +2578,48 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return data, runs
+
+
+def _seeded_phase3(seed: int):
+    """A wrapper of ProtocolInfo.phase3 that seeds each party's local PRG
+    streams and its encryption generator from `seed` and the party's pid
+    as phase 3 starts, so that two runs from the same caches draw the same
+    masks and noise."""
+    def make(real):
+        def seeded(self, qpc):
+            table = self.net.rand.table
+            for k in table:  # the global stream, each pair's, the party's own
+                a, b = (-1, -1) if k < 0 else sorted((k, self.pid))
+                table[k] = np.random.Generator(
+                    np.random.Philox(key=[seed + 1, 100 * (a + 2) + b + 2]))
+            self.cps.enc_rng = np.random.default_rng([seed + 1, self.pid])
+            return real(self, qpc)
+        return seeded
+    return make
+
+
+def _products_vs_kept(tmp: str, saved: str) -> dict:
+    """Each data party's block products of the last run (its assoc_assoc_*
+    caches: the rows of the basis, then the y~ row) against run 1's kept
+    copies, bit for bit."""
+    out = {}
+    for pid in (1, 2):
+        d = os.path.join(tmp, "cache", f"party{pid}")
+        kept = os.path.join(saved, f"party{pid}", "products")
+        names = sorted(os.listdir(kept))
+        basis = y_row = bool(names)
+        for fn in names:
+            with np.load(os.path.join(d, fn)) as a, np.load(os.path.join(kept, fn)) as b:
+                rows, cols = int(b["rows"]), int(b["cols"])
+                for i in range(rows):
+                    same = all(np.array_equal(a[f"{c}_{i}_{j}"], b[f"{c}_{i}_{j}"])
+                               for j in range(cols) for c in ("c0", "c1", "m"))
+                    if i < rows - 1:
+                        basis &= same
+                    else:
+                        y_row &= same
+        out[pid] = {"blocks": len(names), "basis_rows_equal": basis, "y_row_equal": y_row}
+    return out
 
 
 def study_check(data, runs, n_loc: int, sizes) -> dict:
@@ -2530,10 +2656,11 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     --local-sim 3 and no --platform (the card), at the example's width: 2 x
     1000 individuals, 5 covariates, config/configGlobalSkipPCA.toml's flags,
     and the first 2 of its 22 SNP blocks (9,092 SNPs);
-    run 1 fresh, run 2 resumed from its caches (_study_runs).  Then K2
+    run 1 fresh, run 2 resumed from its caches, then phase 14's and
+    phase 15's runs (_study_runs).  Then K2
     timed at its first launch and every other kernel at each shape of run 1
     that no earlier phase checked.  Appends the kernels' records to
-    `kernels`; returns the phase's record."""
+    `kernels`; returns the phase's record and phase 14's and 15's runs."""
     from sfgwas_tpu_torch.crypto.params import get_params
     from sfgwas_tpu_torch.gwas import matmult as MM
 
@@ -2542,9 +2669,12 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.time()
     data, runs = _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, STUDY_CONFIG),
-                             overrides={"num_snps": int(sum(sizes))}, householder=True)
+                             overrides={"num_snps": int(sum(sizes))}, householder=True,
+                             routed=True)
     hh = {"data": data, "run": runs.pop("householder"), "n_loc": n_loc, "sizes": sizes,
           "cholqr2_stats": runs["fresh"]["stats"]}
+    rt = {"data": data, "run": runs.pop("routed"), "n_loc": n_loc, "sizes": sizes,
+          "resumed_stats": runs["resumed"]["stats"], "twin": runs.pop("twin")}
     checks = study_check(data, runs, n_loc, sizes)
     fresh, resumed = runs["fresh"], runs["resumed"]
     k2 = fresh["k2"]
@@ -2615,7 +2745,7 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     del rec
     line.update(k1_new_shapes_total_ms=k1_total, k1_shapes=k1_shapes, tree_shapes=tree_shapes,
                 phase_s=time.time() - t_phase)
-    return line, hh
+    return line, hh, rt
 
 
 def householder_study_check(hh: dict) -> dict:
@@ -3131,9 +3261,16 @@ def tcp_study_phase(torch, seed: int, out_dir: str, kernels: list, n_loc: int = 
 # the shipped configuration: PCA on (5 PCs, 10 oversampling columns, cholqr2,
 # 5 shifted-QR iterations an eigenvalue), QC from the plink2 counts
 PCA_CONFIG = "config/configGlobal.toml"
-PCA_BLOCKS = STUDY_BLOCKS[:3]  # the first 3 of the config's 22 blocks
+# the first 2 of the config's 22 blocks: cut from 3 when phase 15 took the
+# whole script past 1,140 of its 1,200 s on the H100 (about 1,145 s); QC
+# then keeps fewer SNPs than PCA_SNPS, and LD pruning keeps them all
+PCA_BLOCKS = STUDY_BLOCKS[:2]
 PCA_SNPS = 10_000  # LD-pruned SNPs: the example's order (sfgwas_tpu/gwas/pca.py:60-61)
 PCA_POWER_ITERS = 1  # of the config's 20
+# shifted-QR iterations an eigenvalue, of the config's 5 (tests/test_torch_pca.py
+# runs 2 too): cut when the whole script ran past its 1,200 s on an H100; the
+# SS eigendecomposition of the 15 x 15 Gram took 182 of the fresh run's 313 s
+PCA_EIGEN_ITERS = 2
 PCA_NPOP, PCA_FST = 3, 0.05  # Balding-Nichols subpopulations
 PCA_SHIFT = (0.0, 0.8, -0.8)  # the phenotype's mean in each subpopulation
 PCA_MIN_COS = 0.99  # |cos| of each of the top two exact PCs with span(Qpc)
@@ -3231,12 +3368,14 @@ def pca_study_check(data, runs, n_loc: int, sizes, pca_snps: int, npc: int) -> d
 def _pca_study_runs(torch, seed: int, out_dir: str, n_loc: int = 1000, sizes=PCA_BLOCKS,
                     pca_snps: int = PCA_SNPS, platform=None, overrides=None):
     """Phase 12's two CLI runs (_study_runs on config/configGlobal.toml with
-    the power iterations cut to PCA_POWER_ITERS; platform=None is the
+    the power iterations cut to PCA_POWER_ITERS and the shifted-QR
+    iterations to PCA_EIGEN_ITERS; platform=None is the
     card).  A CPU rehearsal: platform="cpu" with a small n_loc, sizes and
     pca_snps and, in overrides, "ckks_params": "TEST8", num_inds and
     num_snps (and smaller PCA sizes: kp 15 costs minutes of SS work)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    fields = {"num_snps": int(sum(sizes)), "num_power_iters": PCA_POWER_ITERS}
+    fields = {"num_snps": int(sum(sizes)), "num_power_iters": PCA_POWER_ITERS,
+              "iter_per_eigenval": PCA_EIGEN_ITERS}
     fields.update(overrides or {})
     return _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, PCA_CONFIG),
                        platform=platform, overrides=fields, pca_snps=pca_snps,
@@ -3260,9 +3399,10 @@ def pca_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     with --local-sim 3 and no --platform (the card), at the shipped width:
     PN14QP438, 2 x 1000 individuals, 5 covariates, 5 PCs with 10
     oversampling columns (kp 15), cholqr2, QC from the counts at
-    config/configGlobal.toml's thresholds, LD pruning at 100,000 bp to
-    10,000 SNPs (host-streamed diagonal caches), the first 3 of the
-    config's 22 blocks and 1 of its 20 power iterations; run 1 fresh, run 2
+    config/configGlobal.toml's thresholds, LD pruning at 100,000 bp to at
+    most 10,000 SNPs (host-streamed diagonal caches), the first 2 of the
+    config's 22 blocks, 1 of its 20 power iterations and 2 of its 5
+    shifted-QR iterations an eigenvalue; run 1 fresh, run 2
     resumed from the decrypted PCs and the other caches.  Then K2 timed at
     its first launch (a PCA shape) and every other kernel at each shape of
     run 1 that no earlier phase checked.  Appends the kernels' records to
@@ -3280,11 +3420,14 @@ def pca_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     line = {
         "individuals": [0, n_loc, n_loc], "covariates": 5, "snps": int(sum(sizes)),
         "blocks": len(sizes), "config": PCA_CONFIG, "pcs": npc, "oversampling": 10,
-        "power_iterations": PCA_POWER_ITERS, "pca_snps_target": PCA_SNPS,
+        "power_iterations": PCA_POWER_ITERS, "eigen_iterations": PCA_EIGEN_ITERS,
+        "pca_snps_target": PCA_SNPS,
         "population": {"subpopulations": PCA_NPOP, "fst": PCA_FST, "shift": PCA_SHIFT},
         "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
                     "blocks": [len(STUDY_BLOCKS), len(sizes)],
                     "power_iterations": [20, PCA_POWER_ITERS],
+                    "eigen_iterations": [5, PCA_EIGEN_ITERS],
+                    "pruned_snps": [PCA_SNPS, checks["pruned"]],
                     "why": "time: the whole script runs within its 1,200 s"},
         "checks": checks, "data_s": fresh["data_s"],
         "k2_inline_checks": {k: k2[k] for k in ("launches", "equal", "check_s")},
@@ -3534,9 +3677,13 @@ LOGISTIC_CONFIG = "config/configGlobalLogistic.toml"
 LOGISTIC_BLOCKS = STUDY_BLOCKS[:1]
 LOGISTIC_EPOCHS = 3  # tests/test_e2e_gwas.py:79's count
 # phase 13's Newton epochs, of the config's 15: cut from 3 to make room for
-# the Householder QRs of phases 8 and 14 (the phase still holds the
-# statistics to the converged oracle, corr > 0.99)
-LOGISTIC_RUN_EPOCHS = 2
+# the Householder QRs of phases 8 and 14, then from 2 when the whole script
+# ran past its 1,200 s on an H100 (the second epoch took 85 s).  One epoch
+# still runs both branches of compute_grad_and_inv_hessian (the first
+# epoch's, without the intercept term, and the score test's preparation's,
+# with it), and the phase still holds the statistics to the converged
+# oracle, corr > 0.99
+LOGISTIC_RUN_EPOCHS = 1
 LOGISTIC_CONVERGED_EPOCHS = 50  # scripts/check_example_oracle.py:97
 LOGISTIC_TOL = 2e-2  # against the oracle of the same epochs
 LOGISTIC_MIN_CORR = 0.999
@@ -3574,9 +3721,14 @@ def _logistic_data(seed: int, n_loc: int, m: int, ncov: int = 5):
 def logistic_oracle(data, keep: np.ndarray, epochs: int) -> np.ndarray:
     """The exact-sigmoid score test after `epochs` Newton steps from zero
     weights on [ones | covariates] (the first step's p is 1/2, as
-    lr_newton_cov_only's first epoch without the intercept term), then
-    scripts/check_example_oracle.py:93-116's statistic (missing dosages
-    read as 0)."""
+    lr_newton_cov_only's first epoch without the intercept term), then the
+    statistic of gwy_score_test (sfgwas_tpu/gwas/assoc.py:557-700, missing
+    dosages read as 0): g^T (y~ - o) / sqrt(g^T W g - g^T W Z (Z^T W Z)^-1
+    Z^T W g), with y~ = y - p and o = W Z (Z^T W Z)^-1 Z^T y~.  o is W Z
+    times the next Newton step, so it vanishes only at convergence
+    (scripts/check_example_oracle.py:93-116 leaves it out at its 50
+    epochs); after 2 epochs, leaving it out put the oracle 1.41e-2 off the
+    port's statistics on the card."""
     G = np.concatenate([data[1][0], data[2][0]])[:, keep].astype(np.float64)
     G[G < 0] = 0.0
     y = np.concatenate([data[1][1], data[2][1]])
@@ -3592,7 +3744,8 @@ def logistic_oracle(data, keep: np.ndarray, epochs: int) -> np.ndarray:
     Hinv = np.linalg.inv(Z.T @ ZW)
     gzw = G.T @ ZW
     den = (w[:, None] * G * G).sum(0) - np.einsum("ij,jk,ik->i", gzw, Hinv, gzw)
-    return (G.T @ (y - p)) / np.sqrt(den)
+    o = ZW @ (Hinv @ (Z.T @ (y - p)))
+    return (G.T @ (y - p - o)) / np.sqrt(den)
 
 
 def logistic_study_check(data, runs, n_loc: int, epochs: int) -> dict:
@@ -3662,7 +3815,7 @@ def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     config/configGlobalLogistic.toml's width: PN14QP438, QC from the counts
     at its thresholds, cached keys, skip_pca, the degree-62 sigmoid on
     [-10, 10], inverse_mat_scale 10,000, 2 x 1000 individuals, 5
-    covariates, the first of the config's 22 blocks and 2 of its 15
+    covariates, the first of the config's 22 blocks and 1 of its 15
     Newton epochs; one fresh run.  Then K2 timed at its first launch at
     each row count (6: g^T W z B^T; 1: the squared block's g^T W g) and
     every other kernel at each shape of the run that no earlier phase
@@ -3738,6 +3891,270 @@ def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# 15. within-party sharding: the sharded product and the routed study
+
+# logical shards of the one card: the sharded branch runs every step it runs
+# on two devices, and its copies between them are no-ops
+SHARD_DEVICES = 2
+SHARD_LABEL = "two logical shards on one card, no cross-device copy"
+SHARD_REPS = 3  # timed calls of each product mode
+# phase 3's block placed as this many block columns: the product's columns
+# go to shard slots bj % SHARD_DEVICES
+WIDE_COLUMNS = 2
+
+
+def shard_phase(torch, cps, A, cache, dense_out, kernels: list, out_dir: str) -> dict:
+    """Phase 15 (b, c) on phase 3's block product (PN14QP438, the 1000 x
+    4546 int8 block, 8 encrypted columns): (b) mat_mult_sharded over two
+    logical shards of the card on phase 3's cache (one block column: every
+    chunk on slot 0) and on WIDE, that block twice as two block columns
+    (column bj on slot bj % 2: a real split), unsharded, sharded and
+    through the pipeline routing; every output ciphertext bit-equal to
+    phase 3's.  The two-column product is timed unsharded and sharded over
+    SHARD_REPS calls each, the sharded one also stage by stage
+    (synchronized spans) and traced (no device value read back), with K1
+    and K3 held at its new shapes; (c) K2 at each shard slot's launch
+    against its plain version on fresh accumulators (the first timed, the
+    other compared).  Appends the kernels' records to `kernels`; returns
+    the phase's record."""
+    from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.gwas import matmult as MM
+    from sfgwas_tpu_torch.ops import cuda_build, rns
+    from sfgwas_tpu_torch.utils import prof
+
+    global TIMING
+    ctx = cps.ctx
+    dev = ctx.device
+    params = get_params("PN14QP438")
+    shards = [dev] * SHARD_DEVICES
+    nmod, s, logn = MM.mm_nmod(cps), len(A), ctx.params.logn
+    wide = [[cache[0][0]] * WIDE_COLUMNS]
+    t_phase = time.time()
+
+    def equal(out):
+        # every block column of `out` is phase 3's one output column
+        return all(_same(torch, a.c0, rb[0].c0) and _same(torch, a.c1, rb[0].c1)
+                   for ra, rb in zip(out, dense_out) for a in ra)
+
+    def seconds(fn):
+        ts = []
+        for _ in range(SHARD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.time() - t0)
+        return {"mean_s": float(np.mean(ts)), "spread_s": float(max(ts) - min(ts)), "calls_s": ts}
+
+    def unsharded():
+        return MM.mat_mult_cached(cps, A, wide)
+
+    def sharded():
+        return MM.mat_mult_sharded(cps, A, wide, devices=shards)
+
+    # (b) equality, then the timed calls; the launch counts of the phase's
+    # products are set to 0 before and read after
+    cuda_build.reset_launch_counts()
+    eq = {"one_column_sharded": equal(MM.mat_mult_sharded(cps, A, cache, devices=shards)),
+          "two_columns": equal(unsharded()), "two_columns_sharded": equal(sharded())}
+    MM.set_pipeline_devices(shards)
+    try:
+        eq["two_columns_routed"] = equal(MM.mat_mult_cached(cps, A, wide))
+    finally:
+        MM.set_pipeline_devices(None)
+    times = {"unsharded": seconds(unsharded), "sharded": seconds(sharded)}
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+    per_product = {}
+    for name, fn in (("unsharded", unsharded), ("sharded", sharded)):
+        cuda_build.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        per_product[name] = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+    _say(f"shard phase: ciphertexts equal to phase 3's {json.dumps(eq)}; two block columns "
+         f"({SHARD_LABEL}) {json.dumps(times)}")
+    if not all(eq.values()):
+        raise AssertionError(f"a sharded product differs from phase 3's: {eq}")
+    missing = [k for k in SHARD_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the sharded products: {missing}")
+    # K2 launches per product: one a block row unsharded, one a shard slot
+    # that holds chunks sharded
+    plan = MM._plan_for(cps, wide, nmod, row_batch=s)
+    want = {"unsharded": 1, "sharded": len(plan.groups(shards)[0])}
+    if want["sharded"] != SHARD_DEVICES or any(
+            per_product[m]["mac_dense"] != want[m] for m in want):
+        raise AssertionError(f"K2 launches per product {per_product}; want {want}")
+    # the sharded product's spans, each ended by a synchronize
+    prof.ENABLED, prof.SYNC = True, torch.cuda.synchronize
+    prof.reset()
+    try:
+        sharded()
+        spans = {k: v[0] for k, v in prof.totals().items()}
+    finally:
+        prof.ENABLED, prof.SYNC = False, None
+    profiled = _profile(torch, sharded, os.path.join(out_dir, "shard_profile.txt"))
+    if profiled["host_readbacks"]:
+        raise AssertionError(f"the sharded product read {profiled['host_readbacks']} device "
+                             "values back to the host")
+    # K1 and K3 at the two-column product's shapes (its giant step rotates
+    # twice phase 3's segments)
+    rec = _collective_recorder(k3=True)
+    cuda_build.reset_launch_counts()
+    try:
+        sharded()
+        torch.cuda.synchronize()
+    finally:
+        rec.restore()
+    rec_launches = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
+    k1_shapes, k1_total, tree_shapes, equal_only = _collective_kernel_checks(
+        torch, rec, rec_launches, params, kernels, "sharded_product", new_only=True,
+        timed_per_kernel=1)
+    del rec
+
+    # (c) K2 at each shard slot's launch, on fresh accumulators as the
+    # sharded product runs it: the first timed, the other compared
+    q = ctx._t(range(nmod))["q"]
+    mu = rns.barrett_mu64(ctx.basis, range(nmod), dev)
+    nacc = len(plan.segments) + 1
+    R0, R1 = MM.baby_rotations(cps, A, plan, 0)
+    compared: list = []
+    for slot, g in enumerate(plan.groups(shards)[0]):
+        TIMING = slot == 0
+        try:
+            _k2_check(torch, MM, kernels if slot == 0 else compared,
+                      f"mac_dense (shard slot {slot} of {SHARD_DEVICES}, {s} rows)",
+                      MM.mac_dense, R0, R1, g["polys"], g["runs"], q, mu, logn, nacc,
+                      replaces="sfgwas_tpu/gwas/matmult.py:397")
+        finally:
+            TIMING = True
+    kernels[-1].update(launches=launches["mac_dense"], path="sharded_product",
+                       launches_per_mat_mult=per_product["sharded"]["mac_dense"])
+    slot_checks = [{"shape": k["shape"], "bit_equal": k["bit_equal"], "ms": k["ms"],
+                    "bound_ms": k["bound_ms"]} for k in (kernels[-1], *compared)]
+    del R0, R1, plan
+    torch.cuda.empty_cache()
+    _say(f"shard slot K2 checks: {json.dumps(slot_checks)}")
+    if not all(k["bit_equal"] for k in slot_checks):
+        raise AssertionError(f"K2 at a shard slot differs from its plain version: {slot_checks}")
+    return {
+        "label": SHARD_LABEL, "devices": [str(d) for d in shards], "preset": "PN14QP438",
+        "block": [1000, 4546], "block_columns": WIDE_COLUMNS, "columns": s, "nmod": nmod,
+        "equal_to_phase3": eq, "secs_per_product": times,
+        "launches": launches, "launches_per_product": per_product,
+        "sharded_spans_s": spans, "sharded_profile": profiled,
+        "k1_new_shapes_timed_total_ms": k1_total, "k1_shapes": k1_shapes,
+        "compared_without_timing": equal_only, "slot_checks": slot_checks,
+        "tree_shapes": tree_shapes, "phase_s": time.time() - t_phase,
+    }
+
+
+def routed_study_check(rt: dict) -> dict:
+    """Phase 15 (d)'s filters against the QC oracle, its statistics against
+    the plaintext oracle, against its unsharded twin (the same caches and
+    seeds: bit for bit) and, for the record, against phase 10's resumed run
+    (the same keys, filter and basis, but its block products from run 1's
+    cache and its own draws: they differ in the last printed digits), and
+    its block products against run 1's: the basis rows bit for bit; the y~
+    row carries this run's own bootstrap draw."""
+    data, run, n_loc = rt["data"], rt["run"], rt["n_loc"]
+    want_keep = assoc_qc_oracle(data, ASSOC_FILTER, n_loc)
+    want = assoc_stat_oracle(data, want_keep)
+    checks = {"filter_equal": {p: bool(np.array_equal(run["keep"][p], want_keep))
+                               for p in (1, 2)}}
+    for pid in (1, 2):
+        got, res = run["stats"][pid], rt["resumed_stats"][pid]
+        ok = got.shape == want.shape == res.shape
+        checks[pid] = {
+            "finite": bool(np.isfinite(got).all()),
+            "max_abs_err": float(np.abs(got - want).max()) if ok else None,
+            "corr": float(np.corrcoef(got, want)[0, 1]) if ok else None,
+            "twin_bit_equal": bool(np.array_equal(got, rt["twin"]["stats"][pid])),
+            "resumed_bit_equal": bool(ok and np.array_equal(got, res)),
+            "resumed_max_abs_diff": float(np.abs(got - res).max()) if ok else None,
+        }
+    checks["products_vs_run1"] = run["products_vs_run1"]
+    return checks
+
+
+def routed_study_phase(torch, rt: dict, kernels: list) -> dict:
+    """Phase 15 (d): the skip-PCA study with every product routed over two
+    logical shards of the card (shard_matmult = true in the config, the
+    protocol's local_devices giving the two shards), and its unsharded
+    twin on the same caches and seeds, run by phase 10's _study_runs after
+    phase 14's run: the keys, the QC filter and run 1's basis restored
+    from the caches, the 2 blocks' products computed again.  Checks it, then holds every kernel against
+    its plain version at each shape of the run that no earlier phase
+    checked.  Appends the kernels' records to `kernels`; returns the
+    phase's record."""
+    from sfgwas_tpu_torch.crypto.params import get_params
+
+    params = get_params("PN14QP438")
+    t_phase = time.time()
+    run, sizes = rt["run"], rt["sizes"]
+    checks = routed_study_check(rt)
+    k2 = run["k2"]
+    line = {
+        "individuals": [0, rt["n_loc"], rt["n_loc"]], "covariates": 5,
+        "snps": int(sum(sizes)), "blocks": len(sizes), "config": STUDY_CONFIG,
+        "label": SHARD_LABEL,
+        "run": "a fourth run of phase 10's _study_runs, after phase 14's: the resumed config "
+               "with the keys, the QC filter and run 1's basis restored from the caches, the "
+               "block products computed again, shard_matmult = true with the protocol's "
+               "local_devices giving [cuda:0, cuda:0], the routing reset after",
+        "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
+                    "blocks": [len(STUDY_BLOCKS), len(sizes)],
+                    "why": "time: the whole script runs within its 1,200 s"},
+        "checks": checks, "sharded_products": run["sharded_products"],
+        "twin": {"command_s": rt["twin"]["command_s"],
+                 "sharded_products": rt["twin"]["sharded_products"],
+                 "run": "the same caches and seeds, the resumed config without shard_matmult"},
+        "k2_inline_checks": {k: k2[k] for k in ("launches", "equal", "check_s")},
+        "k2_launches_by_rows": dict(k2["launches_by_rows"]),
+        "assoc_s_party1": run["protocol_party1"].get("assoc_s"),
+    }
+    line.update({k: run[k] for k in (
+        "command_s", "protocol_party1", "protocol_party2", "init_s", "keys_from_cache",
+        "spans_party1_host_clock", "peak_device_bytes", "peak_host_rss_bytes", "launches")})
+    _say(f"routed study phase: {json.dumps(line)}")
+    for pid, eq in checks["filter_equal"].items():
+        if not eq:
+            raise AssertionError(f"routed run, party {pid}: the SNP filter differs from the "
+                                 "oracle")
+    for pid in (1, 2):
+        c = checks[pid]
+        if (not c["finite"] or c["max_abs_err"] is None or not c["max_abs_err"] <= ASSOC_STAT_TOL
+                or not c["corr"] > ASSOC_MIN_CORR or not c["twin_bit_equal"]):
+            raise AssertionError(f"routed party {pid}: statistics off: {c}")
+        prod = checks["products_vs_run1"][pid]
+        if prod["blocks"] != len(sizes) or not prod["basis_rows_equal"]:
+            raise AssertionError(f"routed party {pid}: the block products' basis rows differ "
+                                 f"from run 1's: {prod}")
+    missing = [k for k in ASSOC_PATH if run["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the routed run: {missing}")
+    nblocks = len(sizes)
+    if run["sharded_products"] != 2 * nblocks or rt["twin"]["sharded_products"] != 0:
+        raise AssertionError(f"{run['sharded_products']} products took the sharded branch "
+                             f"({rt['twin']['sharded_products']} in the twin); want "
+                             f"{2 * nblocks} (0)")
+    if run["launches"]["mac_dense"] != k2["launches"] or k2["equal"] != k2["launches"]:
+        raise AssertionError(f"K2: {run['launches']['mac_dense']} launches, {k2['equal']} of "
+                             f"{k2['launches']} equal to its plain version")
+    if sorted(run["keys_from_cache"]) != [0, 1, 2] or not all(run["keys_from_cache"].values()):
+        raise AssertionError(f"bundles from the key cache: {run['keys_from_cache']}")
+    rec = run.pop("rec")
+    k1_shapes, k1_total, tree_shapes, equal_only = _collective_kernel_checks(
+        torch, rec, run["launches"], params, kernels, "routed_study", new_only=True,
+        timed_per_kernel=HH_TIMED_SHAPES)
+    del rec
+    line.update(k1_new_shapes_timed_total_ms=k1_total, k1_shapes=k1_shapes,
+                compared_without_timing=equal_only, tree_shapes=tree_shapes,
+                phase_s=time.time() - t_phase)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3776,6 +4193,7 @@ def main() -> int:
         os.makedirs(out, exist_ok=True)
         pca_probe(torch, args.seed, out)
         return 0
+    t_script = time.time()
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "chiprun_out")
     sys.path.insert(0, root)
@@ -3994,7 +4412,12 @@ def main() -> int:
     for k in kernels:
         k["launches"], k["path"] = launches[k["kernel"]], "block_product"
         k.setdefault("launches_per_mat_mult", per_call[k["kernel"]])
-    del cache, A, out, pout, cps, pcps, plan, gi, ig0, ig1, ik0, ik1, C1s
+    del pout, pcps, plan, gi, ig0, ig1, ik0, ik1, C1s
+    torch.cuda.empty_cache()
+
+    # ---- 15 (b, c). within-party sharding on the block product
+    shard = shard_phase(torch, cps, A, cache, out, kernels, out_dir)
+    del cache, A, out, cps
     torch.cuda.empty_cache()
 
     # ---- 6. the MHE collective layer
@@ -4006,10 +4429,14 @@ def main() -> int:
     # ---- 9. the linear association phase
     assoc = assoc_phase(torch, args.seed, out_dir, kernels)
     # ---- 10. the study through the CLI, fresh and resumed
-    study, hh = study_phase(torch, args.seed, out_dir, kernels)
+    study, hh, rt = study_phase(torch, args.seed, out_dir, kernels)
     # ---- 14. the Householder study, run inside phase 10 after its resumed run
     householder_study = householder_study_phase(torch, hh, kernels)
     del hh
+    # ---- 15 (d). the study with every product routed over two logical
+    # shards, run inside phase 10 after phase 14's run
+    routed_study = routed_study_phase(torch, rt, kernels)
+    del rt
     # ---- 11. the study as three party processes over loopback TCP
     tcp_study = tcp_study_phase(torch, args.seed, out_dir, kernels, sizes=TCP_BLOCKS,
                                 overrides={"num_snps": int(sum(TCP_BLOCKS))})
@@ -4021,8 +4448,8 @@ def main() -> int:
     # bs_mask's and K6's of the collective phases
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
               "crt_lift": []}
-    for phase in (mhe, ss, qr, assoc, study, householder_study, tcp_study, pca_study,
-                  logistic_study):
+    for phase in (shard, mhe, ss, qr, assoc, study, householder_study, routed_study, tcp_study,
+                  pca_study, logistic_study):
         for key, found in phase.pop("tree_shapes").items():
             shapes[key] += [s for s in found if s not in shapes[key]]
     with open(os.path.join(out_dir, "shapes.json"), "w") as f:
@@ -4064,10 +4491,14 @@ def main() -> int:
         "pca_study": pca_study,
         "logistic_study": logistic_study,
         "householder_study": householder_study,
+        "shard": shard,
+        "routed_study": routed_study,
     }
+    record["script_s"] = time.time() - t_script
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
+    _say(f"script: {record['script_s']:.1f} s from its start to its record, the build included")
     _say(json.dumps({"kernels": kernels}))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Secure matrix multiplication: ciphertext row-vectors times plaintext int8
-genotype blocks via BSGS generalized diagonals (the device-resident, dense,
-single-device path of sfgwas_tpu/gwas/matmult.py).
+genotype blocks via BSGS generalized diagonals (the device-resident, dense
+path of sfgwas_tpu/gwas/matmult.py).
 
 Per block row, one hoisted keyswitch batch rotates every A row by every
 needed baby shift; the diagonal multiply-accumulate of the whole block row
@@ -15,6 +15,12 @@ chunks (host_block_diagonals, spilled to .npy files and memory-mapped back)
 and are reduced and NTT'd on the device just for the rows each MAC launch
 reads, in groups bounded by a byte budget.  Nothing in a product reads a
 value back from the device.
+
+Within-party sharding (mat_mult_sharded, or set_pipeline_devices for every
+product) splits each block row's MAC launch by shard slot (block column bj
+goes to slot bj % len(devices)); each slot's launch runs on its device on
+fresh accumulators, which are added on the party's device.  All arithmetic
+is exact, so the result is the single-device one bit for bit.
 
 The streamed product (mat_mult_stream) encodes one genotype block, on the
 host (preprocess_matrix_host, safe on a prefetch thread) and then on the
@@ -45,6 +51,7 @@ from ..mpc.mhe import CryptoParams
 from ..ops import rns
 from ..ops.cuda_build import CudaKernel, check, ptr
 from ..ops.rns import add_mod
+from ..parallel.mesh import local_devices
 from ..utils import prof
 
 # diagonal polys per MAC chunk are bounded by this many bytes (per A row);
@@ -65,6 +72,18 @@ STREAM_GROUP_BYTES = 1 << 30
 # would hold ~30 GB); a block product of 8 or fewer rows at the example's
 # shapes stays one grouped keyswitch
 GIANT_BATCH_BYTES = 256 << 20
+
+# within-party sharding for every product: when set (shard_matmult at
+# protocol init), each mat_mult_cached call without devices= splits its MAC
+# launches over these devices
+_pipeline_devices: Optional[list] = None
+
+
+def set_pipeline_devices(devices) -> None:
+    """Route every later product over `devices`; a list of fewer than two
+    (or None) routes nothing."""
+    global _pipeline_devices
+    _pipeline_devices = list(devices) if devices and len(devices) > 1 else None
 
 
 def mm_nmod(cps: CryptoParams) -> int:
@@ -463,7 +482,9 @@ class _MatmulPlan:
     giant-aligned chunks (each chunk covers exactly one segment) stacked
     into one MAC launch per block row.  The chunks mirror the reference's
     (budget split, padding to k_pad with the zero row nb_pad, the nsub
-    bound); the launches take their unpadded entries (groups()).
+    bound); the launches take their unpadded entries (groups()).  Sharded
+    (groups(devices)), each block row has one launch per shard slot, on
+    that slot's device.
 
     Streaming mode (any block kept as host chunks): each block row's
     chunks are split into launches of at most group_bytes of diagonal
@@ -541,7 +562,7 @@ class _MatmulPlan:
             c["bidx"] = np.concatenate(
                 [c["bidx"], np.full(self.k_pad - K, self.nb_pad, np.int64)]
             ).astype(np.int32)
-        self._groups: Optional[list] = None
+        self._groups: Dict[tuple, list] = {}
         self._giant: Optional[dict] = None
 
     def _chunk(self, blk: DiagBlock, bj: int, k0: int, k1: int, bpos) -> dict:
@@ -556,13 +577,14 @@ class _MatmulPlan:
             "sg": self.seg_index[(bj, segs.pop())],
         }
 
-    def _build_group(self, cs, nb: int) -> dict:
-        """One MAC launch from a chunk list: the CSR entry list of its
-        accumulator runs (the chunks' unpadded (diagonal, baby) pairs,
-        consecutive chunks of one accumulator row forming one run), the
-        diagonal polys the chunks touch, and the runs' chunk offsets.  In
-        streaming mode the polys are a zero-argument function that
-        materialises just the row range of each block the chunks read."""
+    def _build_group(self, cs, nb: int, dev=None) -> dict:
+        """One MAC launch from a chunk list, on a shard's device `dev` (None:
+        the plan's): the CSR entry list of its accumulator runs (the chunks'
+        unpadded (diagonal, baby) pairs, consecutive chunks of one
+        accumulator row forming one run), the diagonal polys the chunks
+        touch, and the runs' chunk offsets.  In streaming mode the polys are
+        a zero-argument function that materialises just the row range of
+        each block the chunks read (on the plan's device)."""
         rng: Dict[int, list] = {}  # per block: [first row, end row] read here
         blks: List[DiagBlock] = []
         for c in cs:
@@ -591,7 +613,7 @@ class _MatmulPlan:
         entry_baby = np.concatenate(baby)
         assert entry_baby.max() < nb, "baby index past the block row's rotations"
         runs = MacRuns.from_host(np.concatenate(diag), entry_baby, run_start, run_sg,
-                                 self.device)
+                                 dev or self.device)
         qmax = max(self.q_primes)
         assert runs.longest <= MAC_MAX_TERMS and runs.longest * (qmax - 1) ** 2 < 2**64
         if self.stream:
@@ -607,33 +629,48 @@ class _MatmulPlan:
             polys = blks[0].polys
         else:
             polys = torch.cat([b.polys for b in blks])
-        return {"polys": polys, "runs": runs, "chunk_start": chunk_start}
+        if dev is not None and not callable(polys):
+            polys = polys.to(dev)
+        return {"dev": dev or self.device, "polys": polys, "runs": runs,
+                "chunk_start": chunk_start}
 
-    def groups(self) -> list:
+    def groups(self, devices=None) -> list:
         """Per block row, the list of MAC launches: one, or in streaming
         mode runs of consecutive chunks of at most group_bytes of polys
-        each (a chunk never exceeds it: plan chunks are budget-split)."""
-        if self._groups is not None:
-            return self._groups
+        each (a chunk never exceeds it: plan chunks are budget-split).
+        With devices, each block row's chunks are first split by shard slot
+        (block column bj to slot bj % len(devices)) and each slot's
+        launches run on devices[slot]; slots are keyed by position, so a
+        device listed twice still makes two launches."""
+        devs = [torch.device(d) for d in devices] if devices else [None]
+        key = tuple(map(str, devs))  # ("None",): unsharded
+        if key in self._groups:
+            return self._groups[key]
         budget_rows = max(1, self.group_bytes // (self.nmod * self.n * 4))
-        self._groups = []
+        rows = []
         for bi, cs in enumerate(self.chunks):
             nb = len(self.babies[bi])
-            if not self.stream:
-                self._groups.append([self._build_group(cs, nb)] if cs else [])
-                continue
-            row, sub, used = [], [], 0
-            for c in cs:
-                kr = c["k1"] - c["k0"]
-                if sub and used + kr > budget_rows:
-                    row.append(self._build_group(sub, nb))
-                    sub, used = [], 0
-                sub.append(c)
-                used += kr
-            if sub:
-                row.append(self._build_group(sub, nb))
-            self._groups.append(row)
-        return self._groups
+            by_slot: Dict[int, list] = {}
+            for c in cs:  # slots in the order their first chunk comes
+                by_slot.setdefault(c["bj"] % len(devs), []).append(c)
+            row = []
+            for slot, scs in by_slot.items():
+                if not self.stream:
+                    row.append(self._build_group(scs, nb, devs[slot]))
+                    continue
+                sub, used = [], 0
+                for c in scs:
+                    kr = c["k1"] - c["k0"]
+                    if sub and used + kr > budget_rows:
+                        row.append(self._build_group(sub, nb, devs[slot]))
+                        sub, used = [], 0
+                    sub.append(c)
+                    used += kr
+                if sub:
+                    row.append(self._build_group(sub, nb, devs[slot]))
+            rows.append(row)
+        self._groups[key] = rows
+        return rows
 
     def giant_index(self, ctx) -> dict:
         """Device index tensors of the giant step, built once per plan (a
@@ -724,11 +761,16 @@ def baby_rotations(cps: CryptoParams, A: B.CipherMatrix, plan: _MatmulPlan, bi: 
 
 def mat_mult_cached(
     cps: CryptoParams, A: B.CipherMatrix, cache: List[List[DiagBlock]],
-    group_bytes: int = STREAM_GROUP_BYTES,
+    group_bytes: int = STREAM_GROUP_BYTES, devices=None,
 ) -> B.CipherMatrix:
     """A (s rows x nBlockRows cts) times the preprocessed matrix ->
     s x nBlockCols cts, rescaled by one level.  group_bytes bounds the
-    diagonal polys materialised per MAC launch of a host-streamed cache."""
+    diagonal polys materialised per MAC launch of a host-streamed cache.
+    devices (None: those of set_pipeline_devices) of two or more entries
+    shards the MAC over them; the result is the same bits either way."""
+    if devices is None:
+        devices = _pipeline_devices
+    sharded = devices is not None and len(devices) > 1
     ctx = cps.ctx
     nbr, nbc = len(cache), len(cache[0])
     s = len(A)
@@ -744,7 +786,7 @@ def mat_mult_cached(
     n = ctx.n
     plan = _plan_for(cps, cache, nmod, row_batch=s, group_bytes=group_bytes)
     nseg_tot = len(plan.segments)
-    groups = plan.groups()
+    groups = plan.groups(devices if sharded else None)
     gi = plan.giant_index(ctx)
 
     ACC0 = torch.zeros((nseg_tot + 1, s, nmod, n), dtype=torch.int32, device=ctx.device)
@@ -756,12 +798,22 @@ def mat_mult_cached(
             R0, R1 = baby_rotations(cps, A, plan, bi)
         with prof.span("mm_mac"):
             for g in groups[bi]:
+                dv = g["dev"]
                 polys = g["polys"]() if callable(g["polys"]) else g["polys"]
-                args = (ACC0, ACC1, R0, R1, polys, g["runs"], q)
+                if sharded:
+                    # a shard's partial sums on fresh accumulators on its device
+                    acc = (torch.zeros_like(ACC0, device=dv), torch.zeros_like(ACC1, device=dv))
+                    args = acc + (R0.to(dv), R1.to(dv), polys.to(dv), g["runs"], q.to(dv))
+                else:
+                    args = (ACC0, ACC1, R0, R1, polys, g["runs"], q)
                 if ctx.kernels:
-                    mac_dense(*args, mu=mu, logn=ctx.params.logn)
+                    mac_dense(*args, mu=mu.to(dv), logn=ctx.params.logn)
                 else:
                     mac_dense_plain(*args)
+                if sharded:
+                    ACC0 = add_mod(ACC0, acc[0].to(ctx.device), q)
+                    ACC1 = add_mod(ACC1, acc[1].to(ctx.device), q)
+                    del acc
                 del polys, args  # streamed polys free before the next group's
         del R0, R1
 
@@ -803,6 +855,20 @@ def mat_mult_cached(
         [C.Ciphertext(r0f[bj, i], r1f[bj, i], nmod - 2, out_scale) for bj in range(nbc)]
         for i in range(s)
     ]
+
+
+def mat_mult_sharded(cps: CryptoParams, A: B.CipherMatrix, cache: List[List[DiagBlock]],
+                     devices=None) -> B.CipherMatrix:
+    """mat_mult_cached with each block row's MAC split over a party's
+    devices (the reference's within-party chip sharding).  devices=None:
+    every local device of the context's kind (all cuda:i on a card, [cpu]
+    on the CPU); with one device this is the unsharded product.  Bit-equal
+    to the single-device product."""
+    if not devices:
+        devices = local_devices(cps.ctx.device.type)
+    if len(devices) == 1:
+        return mat_mult_cached(cps, A, cache)
+    return mat_mult_cached(cps, A, cache, devices=devices)
 
 
 def mat_mult_stream(

@@ -6,9 +6,8 @@ Phase1/2/3, SyncAndTerminate).
 Ported: the in-process transport and the TCP mesh, both genotype input
 formats, the three QC routes (skip, cached filter, precomputed counts or the
 scan), phase 2 (PCA, its cached PCs, or skip_pca) and phase 3, linear or
-logistic (use_logistic), with either covariate-basis QR (qr_method).
-The one part not ported yet, within-party sharding, raises
-NotImplementedError naming the ROADMAP item that brings it (A11).
+logistic (use_logistic), with either covariate-basis QR (qr_method), and
+within-party sharding of the products (shard_matmult).
 """
 
 from __future__ import annotations
@@ -19,17 +18,20 @@ import time
 from typing import List
 
 import numpy as np
+import torch
 
 from ..crypto import basics as B
 from ..mpc import mhe
 from ..mpc.mpc import MPC
 from ..mpc.prg import Random
 from ..ops import ring as R
+from ..parallel.mesh import local_devices
 from ..parallel.transport import Network
 from ..utils.config import Config
 from ..utils.log import log
 from . import assoc as assoc_mod
 from . import filestream as fs
+from . import matmult as MM
 from . import pca as pca_mod
 from . import qc as qc_mod
 from . import utilities as U
@@ -74,10 +76,12 @@ class ProtocolInfo:
             config.mpc_boolean_shares,
             config.div_sqrt_max_len,
         )
-        if config.shard_matmult:
-            raise NotImplementedError(
-                "shard_matmult (within-party multi-GPU) is not ported yet (ROADMAP A11)"
-            )
+        # within-party sharding: with shard_matmult every product's MAC goes
+        # over this party's local devices (on a host with one card this
+        # routes nothing); without it, a routing left by an earlier protocol
+        # of this process is cleared
+        kind = torch.device(device).type if device is not None else "cuda"
+        MM.set_pipeline_devices(local_devices(kind) if config.shard_matmult else None)
 
         self.cps = None
         if not mpc_only:

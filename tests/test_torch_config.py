@@ -128,9 +128,31 @@ def test_tcp_transport_names_a8(tmp_path, monkeypatch):
     assert made == [(0, 3, servers, 1, "127.0.0.1"), (0, 3, servers, 3, "0.0.0.0")]
 
 
-def test_shard_matmult_names_a11(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11"):
-        _dealer(_cfg(tmp_path, shard_matmult=True))
+@pytest.mark.parametrize("device,shards", [("cpu", 1), ("cpu", 2), (None, 0)])
+def test_shard_matmult_routes_local_devices(tmp_path, monkeypatch, device, shards):
+    """shard_matmult = true builds the protocol and hands the party's local
+    devices to set_pipeline_devices: [cpu] for a CPU party, every cuda:i
+    for a party on the card (none on this host); a list of one or none
+    routes nothing, two logical shards route.  A later protocol without
+    shard_matmult clears the routing."""
+    from sfgwas_tpu_torch.gwas import matmult as PMM
+
+    if shards == 2:
+        monkeypatch.setattr(PP, "local_devices", lambda kind: [torch.device(kind)] * 2)
+    seen = []
+    real = PMM.set_pipeline_devices
+    monkeypatch.setattr(PMM, "set_pipeline_devices",
+                        lambda d: seen.append(None if d is None else list(d)) or real(d))
+    try:
+        _dealer(_cfg(tmp_path, shard_matmult=True), device=device)
+        assert seen == [PP.local_devices("cpu" if device else "cuda")]
+        assert len(seen[0]) == shards
+        assert PMM._pipeline_devices == (seen[0] if shards > 1 else None)
+        _dealer(_cfg(tmp_path), device=device)
+        assert seen[1:] == [None]
+        assert PMM._pipeline_devices is None
+    finally:
+        real(None)
 
 
 @pytest.mark.parametrize("fields", [{}, {"use_cached_pca": True}])

@@ -330,7 +330,7 @@ def test_port_dealer_with_reference_data_parties(ref_keys, runs):
 def test_chip_smoke_oracle_is_the_reference_oracle(tmp_path):
     """chip_smoke.logistic_oracle converged equals tests/test_e2e_gwas.py's
     oracle_logistic_score on its own data; after 3 epochs it is closer to
-    it than after 2 (4.8e-3 off on these 44 individuals)."""
+    it than after 2 (2.6e-3 off on these 44 individuals)."""
     import chip_smoke
     from test_e2e_gwas import make_logistic_data, oracle_logistic_score
 

@@ -16,16 +16,23 @@ same noise in the logistic phase: the port reveals the reference's SNP filter,
 its assoc.txt lies within 1e-6 of the reference's, and both correlate
 above 0.95 with the exact-Newton oracle (oracle_logistic_score, the
 reference's own bound).  (Unseeded, the two runs' statistics differ by
-their CKKS and truncation noise, a few 1e-6 at TEST8.)"""
+their CKKS and truncation noise, a few 1e-6 at TEST8.)
+
+A third run is the port with the reference's e2e sharding setting
+(shard_matmult = true, tests/test_e2e_gwas.py:70-72) over three logical
+CPU shards: every product takes the sharded branch, and the statistics
+are the unsharded run's bit for bit."""
 
 import os
 import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from sfgwas_tpu.gwas import protocol as RP
 from sfgwas_tpu_torch.gwas import assoc as PA
+from sfgwas_tpu_torch.gwas import matmult as PMM
 from sfgwas_tpu_torch.gwas import protocol as PP
 from test_e2e_gwas import make_logistic_data, oracle_logistic_score
 from test_torch_protocol import _Counter, read_run, run_cli, write_config
@@ -82,6 +89,45 @@ def port_run(study):
     finally:
         mp.undo()
     return newton.n, score.n
+
+
+@pytest.fixture(scope="module")
+def sharded_run(study, port_run):
+    """The port again, shard_matmult on over [cpu] * 3 (the party's local
+    devices, three logical shards), seeded as port_run."""
+    root, data, rcache, rout, cache, out = study
+    scache, sout = os.path.join(root, "cache_sharded"), os.path.join(root, "out_sharded")
+    for pid in (0, 1, 2):
+        shutil.copytree(os.path.join(cache, f"party{pid}", "keys.npz.d"),
+                        os.path.join(scache, f"party{pid}", "keys.npz.d"))
+    mp = pytest.MonkeyPatch()
+    try:
+        _seed_phase3(mp, PP)
+        mp.setattr(PP, "local_devices", lambda kind: [torch.device(kind)] * 3)
+        routed = []
+        real = PMM._MatmulPlan.groups
+        mp.setattr(PMM._MatmulPlan, "groups",
+                   lambda self, devices=None: routed.append(devices) or real(self, devices))
+        products = _Counter(mp, PMM, "mat_mult_cached")
+        run_cli(write_config(os.path.join(root, "sharded.toml"), root, scache, sout,
+                             shard_matmult=True, **LOGISTIC))
+    finally:
+        mp.undo()
+        PMM.set_pipeline_devices(None)
+    return sout, scache, routed, products.n
+
+
+def test_sharded_statistics_equal_unsharded(study, port_run, sharded_run):
+    root, data, rcache, rout, cache, out = study
+    sout, scache, routed, products = sharded_run
+    # every product took the sharded branch
+    assert len(routed) == products > 0
+    assert all(d == [torch.device("cpu")] * 3 for d in routed)
+    for pid in (1, 2):
+        got, gk = read_run(sout, scache, pid)
+        want, wgk = read_run(out, cache, pid)
+        assert np.array_equal(gk, wgk)
+        assert np.array_equal(got, want)
 
 
 def test_port_runs_the_logistic_path(study, port_run):
