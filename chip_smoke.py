@@ -142,8 +142,8 @@ Phases (any failed check raises; the exit code is then nonzero):
     from the plink2 counts, use_cached_keys, use_cached_qc,
     use_cached_combined_q, skip_pca) and paths in {pid} form, on data from
     --seed in a temporary directory removed at the end: per data party
-    1000 individuals, 5 covariates and the first 2 of the config's 22
-    blocks, 9,092 SNPs (phase 9's generators; phase 11 runs 1).  Run
+    1000 individuals, 5 covariates and the first of the config's 22
+    blocks, 4,546 SNPs (phase 9's generators).  Run
     1 is fresh, with every launch count set to 0 before it and read after
     it: all six kernels launched, K2 once a block at each data party and
     held bit for bit against its plain version on the same inputs right
@@ -2164,9 +2164,10 @@ def assoc_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
 
 # config/configGlobal.toml's SNP axis: 100,000 SNPs in 22 blocks, 21 of 4,546
 STUDY_BLOCKS = [4546] * 21 + [4534]
-# phase 10's cut of that axis: its first 2 blocks; phase 11's: its first
+# phase 10's cut of that axis: its first block (cut from 2 when the whole
+# script took 1,103 s of its 1,200 on an H100); phase 11's: its first
 # block (cut from 2 to make room for phase 8's and 14's Householder QRs)
-STUDY_LOCAL_BLOCKS = STUDY_BLOCKS[:2]
+STUDY_LOCAL_BLOCKS = STUDY_BLOCKS[:1]
 TCP_BLOCKS = STUDY_BLOCKS[:1]
 STUDY_RESUME_TOL = 2e-3  # tests/test_e2e_gwas.py:222
 # the configuration's flags: the preset, the thresholds, the QC route and the caches
@@ -2655,7 +2656,7 @@ def study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     """Phase 10: the linear skip-PCA study through the CLI, cli.main with
     --local-sim 3 and no --platform (the card), at the example's width: 2 x
     1000 individuals, 5 covariates, config/configGlobalSkipPCA.toml's flags,
-    and the first 2 of its 22 SNP blocks (9,092 SNPs);
+    and the first of its 22 SNP blocks (4,546 SNPs);
     run 1 fresh, run 2 resumed from its caches, then phase 14's and
     phase 15's runs (_study_runs).  Then K2
     timed at its first launch and every other kernel at each shape of run 1
@@ -4084,7 +4085,7 @@ def routed_study_phase(torch, rt: dict, kernels: list) -> dict:
     protocol's local_devices giving the two shards), and its unsharded
     twin on the same caches and seeds, run by phase 10's _study_runs after
     phase 14's run: the keys, the QC filter and run 1's basis restored
-    from the caches, the 2 blocks' products computed again.  Checks it, then holds every kernel against
+    from the caches, the block products computed again.  Checks it, then holds every kernel against
     its plain version at each shape of the run that no earlier phase
     checked.  Appends the kernels' records to `kernels`; returns the
     phase's record."""

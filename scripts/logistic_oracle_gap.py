@@ -1,6 +1,6 @@
 """Where phase 13's logistic statistics stand against the plaintext oracles.
 
-Two modes:
+Five modes:
 
   python scripts/logistic_oracle_gap.py --stats chiprun_out/assoc_logistic.txt \
       --blocks 1 --epochs 2
@@ -22,6 +22,36 @@ compute_grad_and_inv_hessian call, and prints, per epoch, the largest
 distance of the port's linear predictor Cm w from exact Newton's Z beta
 and the part of it along the exact step (a scale error of the step would
 show there).  About 4 minutes here.
+
+  python scripts/logistic_oracle_gap.py --fit chiprun_out/assoc_logistic.txt \
+      --blocks 1 --epochs 1
+
+fits the covariate weights beta that the score test of a run's statistics
+was computed at (least squares over the exact statistic, gwy_score_test's,
+as a function of beta) and prints the fit's residual and beta's distance
+from exact Newton's after --epochs, in the orthonormal basis of [1 | C]
+(R beta, with Z = QR): the coordinates of the Newton weights a run got
+wrong, the space the port's weights live in.
+
+  python scripts/logistic_oracle_gap.py --card-runs 3
+
+runs phase 13's CLI run (chip_smoke._logistic_study_runs, the card) that
+many times and reveals, at party 1, the input and output of every 6 x 6
+SS inverse of the run (mpc/linalg.py::matrix_inverse_sqrt_svd), printing
+the input's spectrum and the output's error against numpy's inverse, and
+each run's distance from the oracle; it saves them under
+chiprun_out/probe13/.  The reveals add protocol rounds but no draw from a
+shared PRG.
+
+  python scripts/logistic_oracle_gap.py --replay chiprun_out/probe13/run0.npz \
+      --replay-index 0 --seeds 8
+
+runs the port's SS inverse at three parties on the CPU (threads, the
+config's 256-bit field, 60 data bits, 30 fraction bits) on one input A
+that --card-runs revealed, once for each PRG key (Philox [seed, pid],
+seeds --first-seed onwards), and prints the output's error against numpy's inverse:
+whether a failure comes with that input or with the masks.  About 30 s a
+seed here.
 """
 
 import argparse
@@ -125,6 +155,107 @@ def probe_mode(args):
         print(line)
 
 
+def fit_mode(args):
+    from scipy.optimize import least_squares
+
+    sizes = cs.STUDY_BLOCKS[: args.blocks]
+    data = cs._logistic_data(args.seed, 1000, int(sum(sizes)))
+    keep = cs.assoc_qc_oracle(data, cs.ASSOC_FILTER, 1000)
+    got = np.loadtxt(args.fit)
+    G, y, Z = _pooled(data, keep)
+    exact = np.linalg.lstsq(Z, newton(Z, y, args.epochs)[-1], rcond=None)[0]
+
+    def stat(beta):
+        p = 1 / (1 + np.exp(-Z @ beta))
+        w = p * (1 - p)
+        ZW = Z * w[:, None]
+        H = np.linalg.inv(Z.T @ ZW)
+        gzw = G.T @ ZW
+        den = (w[:, None] * G * G).sum(0) - np.einsum("ij,jk,ik->i", gzw, H, gzw)
+        o = ZW @ (H @ (Z.T @ (y - p)))
+        return (G.T @ (y - p - o)) / np.sqrt(den)
+
+    fit = least_squares(lambda d: stat(exact + d) - got, np.zeros(Z.shape[1]))
+    R = np.linalg.qr(Z)[1]
+    np.set_printoptions(precision=4, linewidth=150)
+    print(f"{args.fit}: {got.size} statistics; at exact Newton's beta after {args.epochs} "
+          f"epoch(s) {np.abs(stat(exact) - got).max():.3e} off")
+    print(f"  fitted beta: residual {np.abs(fit.fun).max():.3e}; R (beta - exact) {R @ fit.x}; "
+          f"R exact {R @ exact}")
+
+
+def card_mode(args):
+    import json
+    import time
+
+    import torch
+
+    from sfgwas_tpu_torch.mpc import linalg as PL
+    from sfgwas_tpu_torch.ops import cuda_build
+
+    real = PL.matrix_inverse_sqrt_svd
+    calls = []
+
+    def tofloat(v, mpc):
+        v, q = int(v), mpc.ring.modulus
+        return (v - q if v > q // 2 else v) / (1 << mpc.frac_bits)
+
+    def probed(mpc, A):
+        k = A.shape[0]
+        a = mpc.reveal_sym(A.reshape((k * k,) + A.shape[2:]))
+        B = real(mpc, A)
+        b = mpc.reveal_sym(B.reshape((k * k,) + B.shape[2:]))
+        if mpc.pid == 1:
+            Af, Bf = (np.array([tofloat(v, mpc) for v in mpc.ring.to_ints(m)]).reshape(k, k)
+                      for m in (a, b))
+            S = Af + Af.T
+            inv = np.linalg.inv(S)
+            calls.append((Af, Bf))
+            print(f"  inverse {len(calls)}: eig(A + A^T) {np.linalg.eigvalsh(S)}, largest "
+                  f"off-diagonal {np.abs(S - np.diag(np.diag(S))).max():.3e}; B^T B "
+                  f"{np.abs(Bf.T @ Bf - inv).max() / np.abs(inv).max():.3e} off (relative), "
+                  f"eig(B^T B (A + A^T)) {np.linalg.eigvalsh(Bf.T @ Bf @ S)}", flush=True)
+        return B
+
+    PL.matrix_inverse_sqrt_svd = probed
+    print(cs._smi(), flush=True)
+    cuda_build.build()
+    out = os.path.join(ROOT, "chiprun_out", "probe13")
+    os.makedirs(out, exist_ok=True)
+    for i in range(args.card_runs):
+        t = time.time()
+        calls.clear()
+        data, runs = cs._logistic_study_runs(torch, args.seed, out, 1000, cs.LOGISTIC_BLOCKS)
+        c = cs.logistic_study_check(data, runs, 1000, cs.LOGISTIC_RUN_EPOCHS)
+        np.savez(os.path.join(out, f"run{i}.npz"), A=np.stack([a for a, _ in calls]),
+                 B=np.stack([b for _, b in calls]), stats=runs["fresh"]["stats"][1])
+        print(f"run {i}: {time.time() - t:.1f} s, party 1 {json.dumps(c[1])}", flush=True)
+
+
+def replay_mode(args):
+    from sfgwas_tpu_torch.mpc import linalg as PL
+    from sfgwas_tpu_torch.parallel import simulate as PS
+
+    A = np.load(args.replay)["A"][args.replay_index]
+    k = A.shape[0]
+    inv = np.linalg.inv(A + A.T)
+    print(f"{args.replay}[{args.replay_index}]: eig(A + A^T) {np.linalg.eigvalsh(A + A.T)}")
+    for seed in range(args.first_seed, args.first_seed + args.seeds):
+        def party(mpc):
+            mpc.rand.table[mpc.pid] = np.random.Generator(np.random.Philox(key=[seed, mpc.pid]))
+            vals = [int(round(v * (1 << mpc.frac_bits))) for v in A.reshape(-1)]
+            sh = PS.make_shares(mpc, vals)
+            B = PL.matrix_inverse_sqrt_svd(mpc, sh.reshape((k, k) + sh.shape[1:]))
+            return PS.reveal_ints(mpc, B.reshape((k * k,) + B.shape[2:])), mpc.ring.modulus, \
+                mpc.frac_bits
+
+        ints, q, fb = PS.run_parties(3, party)[1]
+        Bf = np.array([(v - q if v > q // 2 else v) / (1 << fb) for v in ints]).reshape(k, k)
+        print(f"  seed {seed}: B^T B {np.abs(Bf.T @ Bf - inv).max() / np.abs(inv).max():.3e} off "
+              f"(relative), eig(B^T B (A + A^T)) {np.linalg.eigvalsh(Bf.T @ Bf @ (A + A.T))}",
+              flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stats", help="a phase-13 run's assoc_logistic.txt")
@@ -132,13 +263,25 @@ def main():
     ap.add_argument("--epochs", type=int, default=cs.LOGISTIC_RUN_EPOCHS)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--fit", help="a phase-13 run's assoc_logistic.txt")
+    ap.add_argument("--card-runs", type=int, default=0)
+    ap.add_argument("--replay", help="a --card-runs run's npz")
+    ap.add_argument("--replay-index", type=int, default=0, help="which inverse of the run")
+    ap.add_argument("--seeds", type=int, default=4)
+    ap.add_argument("--first-seed", type=int, default=0)
     args = ap.parse_args()
     if args.probe:
         probe_mode(args)
     elif args.stats:
         stats_mode(args)
+    elif args.fit:
+        fit_mode(args)
+    elif args.card_runs:
+        card_mode(args)
+    elif args.replay:
+        replay_mode(args)
     else:
-        ap.error("give --stats FILE or --probe")
+        ap.error("give --stats FILE, --fit FILE, --probe, --card-runs N or --replay FILE")
 
 
 if __name__ == "__main__":
