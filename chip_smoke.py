@@ -184,15 +184,18 @@ Phases (any failed check raises; the exit code is then nonzero):
     process as phase 10 runs its study: config/configGlobal.toml's flags
     (PN14QP438, its QC thresholds and count route, use_cached_keys, 5 PCs
     with 10 oversampling columns, cholqr2, snp_dist_thres 100,000), per
-    data party 1000 individuals and 5 covariates, the first 2 of the
-    config's 22 blocks (9,092 SNPs), 1 of its 20 power iterations and 2 of
-    its 5 shifted-QR iterations an eigenvalue.  The genotypes come from three
+    data party 1000 individuals and 5 covariates, the first of the
+    config's 22 blocks (4,546 SNPs), 1 of its 20 power iterations and 1 of
+    its 5 shifted-QR iterations an eigenvalue, and distributed_pca's
+    device budget cut with the blocks (pca_device_budget: 6 GiB x 1/22).
+    The genotypes come from three
     subpopulations (Balding-Nichols allele frequencies at F_ST = 0.05
     around phase 9's MAFs, each individual's subpopulation drawn
     uniformly) and the phenotype has 5 planted effects and a shift per
     subpopulation; the positions file spaces the SNPs so that LD pruning
-    keeps up to 10,000 (all those QC keeps at 2 blocks), which puts both
-    PCA diagonal caches on the host-streamed path.  Run 1 is fresh (launch
+    keeps up to 10,000 (all those QC keeps at 1 block), and the cut
+    budget puts both PCA diagonal caches on the host-streamed path, as
+    the example's 22 blocks put them.  Run 1 is fresh (launch
     counts set to 0 before it and read after
     it, K2 held bit for bit against its plain version right after each
     launch, party 1's spans synchronized on the card, the host chunks
@@ -276,7 +279,25 @@ Phases (any failed check raises; the exit code is then nonzero):
     block products' basis rows bit-equal to run 1's; every product
     through the sharded branch, K2 held bit for bit at each launch, K1
     and K3-K6 at every new shape;
-16. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
+16. the SS domain's device mode (ring.host False: the shares on the card,
+    the ring's digit arithmetic on K8-K11), run after phase 13: (a) phase
+    7's timed sqrt_and_sqrt_inverse (n = 99,337) and (b) phase 13's first
+    matrix_inverse_sqrt_svd (the 6 x 6 inverse of the first Newton
+    epoch's near-scalar Z^T W Z), each kept by its phase at every party
+    (the PRG table it started from, its input and its outputs:
+    _FirstCalls) and replayed at three parties (run_parties with the
+    phase's MPC parameters) in device mode, every launch count set to 0
+    before the replays and read after them, (a)'s device work traced
+    (device activity alone).  Checks: every party's outputs bit-equal to
+    the phase's host-mode outputs, the data parties' outputs tensors on
+    the card, K8-K11 each launched, the launches recorded at the wrappers equal to
+    the counts.  Recorded: party 1's seconds in both modes, its host
+    profile of each replay (the native engine, the ring kernels'
+    wrappers, partitions, reveals, draws, transport waits), the device's
+    busy and idle share of (a).  Then (c) K8-K11 against their plain
+    versions at every shape the replays launched them with, each timed at
+    its shape of the most work (launches times bytes);
+17. the static SASS of K4, K5 and K6 (cuobjdump: instructions and opcodes
     per kernel), one JSON line of kernels, then the final line
     {"ok": true, "device": {...}}.
 
@@ -313,8 +334,11 @@ line: two trees are compared by running both, in turns, in one call.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
+import copy
 import inspect
+import itertools
 import json
 import os
 import re
@@ -343,6 +367,8 @@ DEVICE_NAMES = {
     "mac_dense": r"mac_dense_kernel", "ks_digit_product": r"ks_digit_kernel",
     "uniform_mod": r"uniform_mod_kernel", "bs_mask": r"bs_mask(_generic)?_kernel",
     "bs_combine": r"bs_combine_kernel", "crt_lift": r"crt_lift_kernel",
+    "ring_reduce": r"ring_reduce_kernel", "ring_mul": r"ring_mul_kernel",
+    "ring_matmul": r"ring_matmul_kernel", "ring_dot": r"ring_dot_kernel",
 }
 # integer operations per second: the card's 67 TFLOP/s float32 rate outside
 # the tensor cores (NVIDIA data sheet), the only non-tensor rate published;
@@ -399,15 +425,14 @@ def _device_ms(torch, fn, reps: int, kernel: str):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-        events = prof.events()
-        durs = [e.time_range.elapsed_us() for e in events
-                if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name)]
+        events = prof.profiler.kineto_results.events()  # raw: cheaper than prof.events()
+        on_dev = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+        durs = [e.end_ns() - e.start_ns() for e in on_dev if pat.search(e.name())]
         if durs:
-            return sum(durs) / len(durs) / 1e3, len(durs), "profiler"
-        dev = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+            return sum(durs) / len(durs) / 1e6, len(durs), "profiler"
         print(f"chip_smoke: torch.profiler traced no launch of {kernel} ({pat.pattern}) in "
-              f"try {attempt} of {PROFILE_TRIES}: {reps * attempt} calls, {dev} device and "
-              f"{len(events) - dev} host events", file=sys.stderr, flush=True)
+              f"try {attempt} of {PROFILE_TRIES}: {reps * attempt} calls, {len(on_dev)} device "
+              f"and {len(events) - len(on_dev)} host events", file=sys.stderr, flush=True)
     return _time_ms(torch, fn, reps), 0, "events"
 
 
@@ -423,10 +448,12 @@ def _same(torch, a, b) -> bool:
 def _profile(torch, fn, path: str, all_threads: bool = False, labels=()) -> dict:
     """One call of fn under torch.profiler: device time by kernel name and
     by port kernel (DEVICE_NAMES), the device's busy share of the traced
-    window, and the full table in `path`; all_threads traces the host
+    window, and a table by name in `path`; all_threads traces the host
     operations of every thread (party threads); `labels` names
     record_function ranges whose device time (the kernels launched inside
-    them) is summed.  Raises when the trace holds no device kernel."""
+    them) is summed.  Read from the profiler's raw events (trace_summary):
+    torch.profiler's own event lists cost a minute and more to build on a
+    party run's trace.  Raises when the trace holds no device kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     kw = {}
@@ -438,52 +465,116 @@ def _profile(torch, fn, path: str, all_threads: bool = False, labels=()) -> dict
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
         fn()
         torch.cuda.synchronize()
-    events = list(prof.events())
-    cuda = torch.autograd.DeviceType.CUDA
-    # a labelled range also appears on the device's timeline, spanning its
-    # first to its last kernel, gaps included: not a kernel
-    dev = [e for e in events if e.device_type == cuda and e.name not in labels]
-    if not dev:
+    out = trace_summary(_trace_rows(torch, prof), labels)
+    if not out["kernels"]:
         raise AssertionError("torch.profiler traced no device kernel")
-    by_name: dict = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, t in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, t
-        else:
-            cur_e = max(cur_e, t)
-    busy += cur_e - cur_s
-    window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    readbacks = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
-    dtoh = sum(1 for e in dev if "DtoH" in e.name)  # device -> host copies
-    host_threads = len({e.thread for e in events if e.device_type != torch.autograd.DeviceType.CUDA})
-    averages = prof.key_averages()  # costs seconds on a party run's trace: made once
     with open(path, "w") as f:
-        f.write(averages.table(sort_by="self_device_time_total", row_limit=60))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    port_ms = {sym: sum(v for k, v in by_name.items() if re.search(pat, k)) / 1e3
-               for sym, pat in DEVICE_NAMES.items()}
+        f.write(out.pop("table"))
+    return out
+
+
+def _trace_rows(torch, prof) -> list:
+    """trace_summary's rows of a finished torch.profiler run."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.device_type() == cuda, e.start_thread_id(), e.start_ns(), e.end_ns(),
+             e.correlation_id(), e.linked_correlation_id())
+            for e in prof.profiler.kineto_results.events()]
+
+
+# the names torch.profiler's event lists leave out (its _filter_name)
+UNLISTED_EVENTS = {
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"}
+
+
+def trace_summary(rows, labels=()) -> dict:
+    """_profile's numbers from a trace's raw events, rows of (name,
+    on_device, thread, start_ns, end_ns, correlation_id,
+    linked_correlation_id) as torch.profiler's kineto results give them.
+    As torch.profiler links them, a device event belongs to the host op
+    (linked id 0) whose correlation id is the event's linked one, the
+    innermost op that launched it: an op's self device time is that of its
+    own kernels, a labelled range's device time that of the kernels of
+    every op it holds on its thread, itself included.  A labelled range
+    also appears on the device's timeline, spanning its first to its last
+    kernel, gaps included: not a kernel.  `table`: calls, host ms and
+    device ms (a host op's self device time) by name, by device ms."""
+    rows = [r for r in rows if r[0] not in UNLISTED_EVENTS]
+    dev = [r for r in rows if r[1] and r[0] not in labels]
+    host = [r for r in rows if not r[1]]
+    by_name: dict = {}
+    for r in dev:
+        by_name[r[0]] = by_name.get(r[0], 0) + r[4] - r[3]
+    busy = 0
+    if dev:
+        spans = sorted((r[3], r[4]) for r in dev)
+        cur_s, cur_e = spans[0]
+        for s, t in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, t
+            else:
+                cur_e = max(cur_e, t)
+        busy += cur_e - cur_s
+    window = (max(r[4] for r in rows) - min(r[3] for r in rows)) if rows else 0
+    ops = {r[5]: r for r in host if r[6] == 0}  # host ops by correlation id
+    own: dict = {}  # device ns of each op's own kernels, by its correlation id
+    for r in dev:
+        if r[6] in ops:
+            own[r[6]] = own.get(r[6], 0) + r[4] - r[3]
+    self_dev: dict = {}
+    host_ns: dict = {}
+    calls: dict = {}
+    for r in host:
+        host_ns[r[0]] = host_ns.get(r[0], 0) + r[4] - r[3]
+        calls[r[0]] = calls.get(r[0], 0) + 1
+    for cid, ns in own.items():
+        name = ops[cid][0]
+        self_dev[name] = self_dev.get(name, 0) + ns
+    for r in dev:
+        calls[r[0]] = calls.get(r[0], 0) + 1
     labelled = {}
-    for label in labels:  # the host-side range: the device time of the kernels it launched
-        hits = [e for e in events if e.name == label and e.device_type != cuda]
-        labelled[label] = {
-            "calls": len(hits),
-            "device_ms": sum(getattr(e, "device_time_total", 0.0) for e in hits) / 1e3,
-        }
-    ops = [(a.key, a.self_device_time_total / 1e3) for a in averages
-           if a.key.startswith("aten::")]
+    if labels:
+        # per thread: the start of each op with kernels, sorted, and the running
+        # sum of their device ns
+        per_thread: dict = {}
+        for cid, ns in own.items():
+            per_thread.setdefault(ops[cid][2], []).append((ops[cid][3], ns))
+        index = {}
+        for t, lst in per_thread.items():
+            lst.sort()
+            index[t] = ([s for s, _ in lst], list(itertools.accumulate((n for _, n in lst),
+                                                                         initial=0)))
+        for label in labels:
+            hits = [r for r in host if r[0] == label]
+            total = 0
+            for h in hits:
+                if h[2] in index:
+                    starts, cum = index[h[2]]
+                    total += (cum[bisect.bisect_right(starts, h[4])]
+                              - cum[bisect.bisect_left(starts, h[3])])
+            labelled[label] = {"calls": len(hits), "device_ms": total / 1e6}
+    aten = sorted(((k, self_dev.get(k, 0) / 1e6) for k in host_ns if k.startswith("aten::")),
+                  key=lambda kv: -kv[1])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    port_ms = {sym: sum(v for k, v in by_name.items() if re.search(pat, k)) / 1e6
+               for sym, pat in DEVICE_NAMES.items()}
+    device = {**self_dev, **by_name}
+    table = ["calls  host_ms  device_ms  name (a host op's device_ms: its own kernels)"]
+    for name in sorted(calls, key=lambda k: (-device.get(k, 0), -host_ns.get(k, 0)))[:60]:
+        table.append(f"{calls[name]:>8} {host_ns.get(name, 0) / 1e6:>12.3f} "
+                     f"{device.get(name, 0) / 1e6:>12.3f}  {name}")
     return {
-        "port_kernel_ms": port_ms, "labelled_ms": labelled,
-        "aten_self_device_ms": sorted(ops, key=lambda kv: -kv[1])[:12],
-        "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
-        "device_sum_ms": sum(by_name.values()) / 1e3, "idle_share": 1 - busy / window,
-        "kernels": len(dev), "top_ms": [[k[:80], v / 1e3] for k, v in top[:15]],
-        "k1_ms": sum(v for k, v in by_name.items() if "ntt_" in k) / 1e3,
-        "host_readbacks": readbacks, "dtoh_copies": dtoh, "host_threads": host_threads,
+        "port_kernel_ms": port_ms, "labelled_ms": labelled, "aten_self_device_ms": aten[:12],
+        "window_ms": window / 1e6, "device_busy_ms": busy / 1e6,
+        "device_sum_ms": sum(by_name.values()) / 1e6,
+        "idle_share": 1 - busy / window if window else 1.0,
+        "kernels": len(dev), "top_ms": [[k[:80], v / 1e6] for k, v in top[:15]],
+        "k1_ms": sum(v for k, v in by_name.items() if "ntt_" in k) / 1e6,
+        "host_readbacks": calls.get("aten::_local_scalar_dense", 0),
+        "dtoh_copies": sum(1 for r in dev if "DtoH" in r[0]),
+        "host_threads": len({r[2] for r in host}), "table": "\n".join(table) + "\n",
     }
 
 
@@ -938,6 +1029,13 @@ def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str,
                      launches, params, compared, path)
     finally:
         TIMING = True
+    return k1_shapes, k1_total, tree_shapes, _equal_only(compared, path)
+
+
+def _equal_only(compared: list, path: str) -> dict:
+    """The records of the shapes compared without timing, counted by
+    kernel (shapes, bit-equal shapes, launches at them); raises unless
+    every one is bit-equal."""
     bad = [k["name"] for k in compared if not k["bit_equal"]]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions on the {path} path: "
@@ -950,7 +1048,7 @@ def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str,
         e["bit_equal"] += k["bit_equal"]
         e["launches_at_shapes"] += k.get("launches_at_shape", 0)
     _say(f"{path}: compared without timing {json.dumps(equal_only)}")
-    return k1_shapes, k1_total, tree_shapes, equal_only
+    return equal_only
 
 
 def _kernel_rows(torch, rec, todo, args, launches, params, kernels, path: str):
@@ -1201,17 +1299,21 @@ class _TimedEngine:
 
 def _sqrt_host_profile(fn):
     """fn() under a host profile of the calling thread: the seconds in the
-    native engine, in Beaver partitions, in the ring draws and waiting in
-    the transport's receive, and each as a share of fn's wall time (the
-    categories overlap: a partition's time holds its draws and waits).
-    Returns (fn's result, the profile)."""
+    native engine, in the ring kernels' wrappers (device mode: the host's
+    side of their launches), in Beaver partitions, in reveals, in the ring
+    draws and waiting in the transport's receive, and each as a share of
+    fn's wall time (the categories overlap: a partition's time holds its
+    draws, its reveal and its waits).  Returns (fn's result, the profile)."""
     from sfgwas_tpu_torch.mpc.mpc import MPC
-    from sfgwas_tpu_torch.ops import native_ring
+    from sfgwas_tpu_torch.ops import cuda_ring, native_ring
     from sfgwas_tpu_torch.ops import ring as R
     from sfgwas_tpu_torch.parallel.transport import LocalTransport
 
     timer = _HostTimer(threading.get_ident())
     for owner, attr, cat in (
+        (cuda_ring, "reduce", "ring_kernel_calls"), (cuda_ring, "mul", "ring_kernel_calls"),
+        (cuda_ring, "matmul", "ring_kernel_calls"), (cuda_ring, "dot", "ring_kernel_calls"),
+        (MPC, "reveal_sym", "reveals"),
         (MPC, "beaver_partition", "beaver_partitions"),
         (MPC, "beaver_partition_many", "beaver_partitions"),
         (R.Ring, "rand", "ring_rand"), (R.Ring, "rand_bits", "ring_rand"),
@@ -1267,6 +1369,7 @@ def _ss_parties(torch, seed: int, n_var: int, warm_n: int, out_dir: str, device=
     from sfgwas_tpu_torch.mpc import linalg as LA
     from sfgwas_tpu_torch.mpc import mhe as PM
     from sfgwas_tpu_torch.mpc import ss_he as SH
+    from sfgwas_tpu_torch.mpc.mpc import MPC
     from sfgwas_tpu_torch.ops import cuda_build
     from sfgwas_tpu_torch.parallel.simulate import make_shares, reveal_ints, run_parties
     from sfgwas_tpu_torch.utils import prof
@@ -1335,6 +1438,7 @@ def _ss_parties(torch, seed: int, n_var: int, warm_n: int, out_dir: str, device=
         if mpc.pid == 1:
             state["profile"] = True
             state["rec"] = _collective_recorder()
+            state["sqrt_calls"] = _FirstCalls(MPC, "sqrt_and_sqrt_inverse")  # for phase 16
             cuda_build.reset_launch_counts()
         gate.wait(timeout=900)
         prof.reset()
@@ -1370,6 +1474,7 @@ def _ss_parties(torch, seed: int, n_var: int, warm_n: int, out_dir: str, device=
                 torch.cuda.synchronize()
             state["launches"] = {k: v.launches for k, v in cuda_build.REGISTRY.items()}
             state["rec"].restore()
+            state["sqrt_calls"].restore()
         gate.wait(timeout=900)
         # chol_whiten of the covariates' Gram
         sh = make_shares(mpc, [int(round(v * (1 << frac))) for v in gram.reshape(-1)])
@@ -1386,17 +1491,20 @@ def _ss_parties(torch, seed: int, n_var: int, warm_n: int, out_dir: str, device=
         res = run_parties(3, party, timeout=1500)
     finally:
         prof.ENABLED, prof.SYNC = False, None
-        if "rec" in state:
-            state["rec"].restore()
+        for k in ("rec", "sqrt_calls"):
+            if k in state:
+                state[k].restore()
     return res, state, var, gram
 
 
-def ss_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
+def ss_phase(torch, seed: int, out_dir: str, kernels: list):
     """Phase 7: the SS domain and the SS<->HE bridge at PN14QP438 on the
     card, at the example's std-inverse size (n = 99,337: 99,336 SNP
     variances and the phenotype's), then K1, K4, K5 and K6 against their
     plain versions at every shape the round trip launched them with.
-    Appends the kernels' records to `kernels`; returns the phase's record."""
+    Appends the kernels' records to `kernels`; returns the phase's record
+    and, for phase 16, what each party's timed square root started from
+    and gave (_FirstCalls)."""
     from sfgwas_tpu_torch.crypto.params import get_params
 
     n_var, warm_n = 99_337, 8_192
@@ -1451,6 +1559,258 @@ def ss_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         torch, rec, launches, params, kernels, "ss")
     line.update(launches=launches, profile=profiled, k1_total_ms=k1_total, k1_shapes=k1_shapes,
                 tree_shapes=tree_shapes)
+    return line, state["sqrt_calls"].snaps
+
+
+# ---------------------------------------------------------------------------
+# 16. the SS domain's device mode (K8-K11)
+
+# each ring wrapper of ops/cuda_ring.py: its kernel and the reference's
+# device program it replaces
+RING_KERNELS = {
+    "reduce": ("ring_reduce", "sfgwas_tpu/ops/ring.py:389"),
+    "mul": ("ring_mul", "sfgwas_tpu/ops/ring.py:522"),
+    "matmul": ("ring_matmul", "sfgwas_tpu/ops/ring.py:590"),
+    "dot": ("ring_dot", "sfgwas_tpu/ops/ring.py:653"),
+}
+SS_DEVICE_PATH = tuple(k for k, _ in RING_KERNELS.values())
+RING_TIMED_SHAPES = 1  # timed shapes a kernel (its most work); the rest only compared
+
+
+def _ring_key(name):
+    def key(ring, *xs):
+        return (ring.name,) + tuple(tuple(x.shape) for x in xs)
+
+    return key
+
+
+def _ring_work(name: str, key) -> tuple:
+    """(bytes, operations) of one launch at a recorded key: each input read
+    once, each output written once; a 32 x 32 -> 64-bit word product counts
+    as two operations (a multiply-add), W^2 of them a product of W-word
+    elements; K8 one operation a digit in and out."""
+    ring_name, *shapes = key
+    L = 32 if ring_name in ("LElem256", "LElem2N256") else 16
+    W = L // 4
+    if name == "reduce":
+        (xs,) = shapes
+        n = int(np.prod(xs[:-1]))
+        return 4 * n * (xs[-1] + L), n * (xs[-1] + L)
+    if name == "mul":
+        n = int(np.prod(np.broadcast_shapes(*[s[:-1] for s in shapes])))
+        return 4 * L * 3 * n, 2 * W * W * n
+    if name == "matmul":
+        (r, k, _), (_, c, _) = shapes
+        return 4 * L * (r * k + k * c + r * c), 2 * W * W * r * k * c
+    (a, cf) = shapes
+    n, k = int(np.prod(a[:-2])), cf[0]
+    return 4 * L * (n * k + k + n), 2 * W * W * n * k
+
+
+class _FirstCalls(_Patches):
+    """Wraps a protocol function `fn(mpc, x, ...)` that the parties look up
+    at call time and keeps, at each party, what its first call started
+    from and gave: a copy of the party's PRG table, the input on the host,
+    the MPC's parameters, the outputs on the host and the seconds it took.
+    Phase 16 replays that call in device mode from the same state."""
+
+    def __init__(self, owner, attr: str):
+        super().__init__()
+        from sfgwas_tpu_torch.ops import ring as R
+
+        self.snaps: dict = {}
+        lock = threading.Lock()
+
+        def make(real):
+            def wrapped(mpc, x, *a, **k):
+                with lock:
+                    first = mpc.pid not in self.snaps
+                    if first:
+                        self.snaps[mpc.pid] = None  # taken
+                if not first:
+                    return real(mpc, x, *a, **k)
+                snap = {"rand": copy.deepcopy(mpc.rand), "x": R.to_host(x).copy(),
+                        "args": (a, k), "mpc": {
+                            "ring": mpc.ring, "data_bits": mpc.data_bits,
+                            "frac_bits": mpc.frac_bits, "boolean_shares": mpc.boolean_shares,
+                            "hub_pid": mpc.hub_pid, "div_sqrt_max_len": mpc.div_sqrt_max_len}}
+                t0 = time.perf_counter()
+                out = real(mpc, x, *a, **k)
+                snap["s"] = time.perf_counter() - t0
+                snap["out"] = [R.to_host(v) for v in (out if isinstance(out, tuple) else (out,))]
+                with lock:
+                    self.snaps[mpc.pid] = snap
+                return out
+
+            return wrapped
+
+        self.patch(owner, attr, make)
+
+
+def _device_trace(torch, fn):
+    """fn() with the device's work traced by torch.profiler, device
+    activity alone (the host's calls are not recorded, so fn's wall time
+    stays close to its own): (fn's result, wall seconds, the device's busy
+    ms, its idle share of the wall time, device ms by name, the largest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = trace_summary(_trace_rows(torch, prof))
+    if not summary["kernels"]:
+        raise AssertionError("torch.profiler traced no device work")
+    busy = summary["device_busy_ms"]
+    return out, wall, busy, 1 - busy / (wall * 1e3), summary["top_ms"][:10]
+
+
+def ss_device_replay(torch, snaps: dict, call, device, trace: bool = False) -> dict:
+    """Replays at three parties (run_parties with the snapshots' MPC
+    parameters) a call that _FirstCalls kept, in device mode: LElem256's
+    `host` False, each party's input a tensor on `device`, its PRG table
+    the kept one.  Party 1's call is timed under a host profile (and, with
+    trace, its device work traced).  Returns each party's outputs on the
+    host, whether they equal the kept ones, and party 1's record."""
+    from sfgwas_tpu_torch.ops import ring as R
+    from sfgwas_tpu_torch.parallel.simulate import run_parties
+
+    if sorted(snaps) != [0, 1, 2] or any(s is None for s in snaps.values()):
+        raise AssertionError(f"no kept call at every party: {sorted(snaps)}")
+    gate = threading.Barrier(3)
+    dev_type = torch.device(device).type
+    cuda = dev_type == "cuda"
+
+    def party(mpc):
+        snap = snaps[mpc.pid]
+        mpc.rand = copy.deepcopy(snap["rand"])
+        x = torch.as_tensor(snap["x"], device=device)
+        a, k = snap["args"]
+        run = lambda: call(mpc, x, *a, **k)  # noqa: E731
+        out: dict = {}
+        gate.wait(timeout=900)
+        t0 = time.perf_counter()
+        if mpc.pid == 1 and trace and cuda:
+            (res, out["host_profile"]), _, busy, idle, top = _device_trace(
+                torch, lambda: _sqrt_host_profile(run))
+            out.update(device_busy_ms=busy, idle_share=idle, device_top_ms=top)
+        elif mpc.pid == 1:
+            res, out["host_profile"] = _sqrt_host_profile(run)
+        else:
+            res = run()
+        if cuda:
+            torch.cuda.synchronize()
+        out["s"] = time.perf_counter() - t0
+        res = res if isinstance(res, tuple) else (res,)
+        out["tensors"] = [isinstance(v, torch.Tensor) and v.device.type == dev_type
+                          for v in res]
+        out["equal"] = all(np.array_equal(R.to_host(v), w) for v, w in zip(res, snap["out"]))
+        return out
+
+    ring = snaps[1]["mpc"]["ring"]
+    saved = ring.host
+    try:
+        ring.host = False
+        return run_parties(3, party, timeout=1500, **snaps[1]["mpc"])
+    finally:
+        ring.host = saved
+
+
+def ss_device_runs(torch, sqrt_snaps: dict, inv_snaps: dict, device="cuda") -> dict:
+    """Phase 16's replays in device mode, their launches counted (set to 0
+    first) and recorded at the ring kernels' wrappers: (a) the square root
+    sqrt_snaps kept (traced on the card), (b) the inverse inv_snaps kept.
+    On the CPU (device="cpu") the plain versions run."""
+    from sfgwas_tpu_torch.mpc import linalg as LA
+    from sfgwas_tpu_torch.mpc.mpc import MPC
+    from sfgwas_tpu_torch.ops import cuda_build, cuda_ring
+
+    rec = _Recorder()
+    for attr in RING_KERNELS:
+        rec.wrap(cuda_ring, attr, attr, _ring_key(attr))
+    cuda_build.reset_launch_counts()
+    try:
+        runs = {"sqrt": ss_device_replay(torch, sqrt_snaps, MPC.sqrt_and_sqrt_inverse, device,
+                                         trace=True),
+                "inverse": ss_device_replay(torch, inv_snaps, LA.matrix_inverse_sqrt_svd,
+                                            device)}
+    finally:
+        rec.restore()
+    launches = {k: cuda_build.REGISTRY[k].launches for k in SS_DEVICE_PATH}
+    return {"runs": runs, "launches": launches, "rec": rec}
+
+
+def ss_device_phase(torch, sqrt_snaps: dict, inv_snaps: dict, kernels: list) -> dict:
+    """Phase 16: the SS domain's device mode on the card, after phase 13.
+    (a) phase 7's sqrt_and_sqrt_inverse over its n = 99,337 shares and (b)
+    phase 13's first matrix_inverse_sqrt_svd (the 6 x 6 inverse of the
+    first Newton epoch's near-scalar Z^T W Z), each replayed at three
+    parties in device mode (the shares on the card, K8-K11 launched by the
+    ring) from the PRG tables and inputs those phases started it from, and
+    bit-equal to their host-mode outputs at every party; party 1 timed
+    under a host profile against its host-mode seconds, (a)'s device work
+    traced (busy and idle share); the launch counts set to 0 before the
+    replays and read after them; then (c) K8-K11 against their plain
+    versions at every shape the replays launched them with (each timed at
+    its shape of the most work).  Appends the timed records to `kernels`."""
+    global TIMING
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    t_phase = time.time()
+    res = ss_device_runs(torch, sqrt_snaps, inv_snaps)
+    runs, launches, rec = res["runs"], res["launches"], res["rec"]
+    line = {"sqrt_n": int(sqrt_snaps[1]["x"].shape[0]),
+            "inverse_shape": list(inv_snaps[1]["x"].shape[:2]), "launches": launches}
+    for name, snaps in (("sqrt", sqrt_snaps), ("inverse", inv_snaps)):
+        r = runs[name]
+        line[name] = {"host_mode_s_party1": snaps[1]["s"], "device_mode_s_party1": r[1]["s"],
+                      "bit_equal": {pid: r[pid]["equal"] for pid in range(3)},
+                      "device_tensors": {pid: r[pid]["tensors"] for pid in (1, 2)},
+                      "device_mode_host_profile_party1": r[1]["host_profile"]}
+        for k in ("device_busy_ms", "idle_share", "device_top_ms"):
+            if k in r[1]:
+                line[name][k] = r[1][k]
+    _say(f"ss device phase: {json.dumps(line)}")
+    for name in ("sqrt", "inverse"):
+        if not all(line[name]["bit_equal"].values()):
+            raise AssertionError(f"{name} in device mode differs from host mode: "
+                                 f"{line[name]['bit_equal']}")
+        if not all(all(v) for v in line[name]["device_tensors"].values()):
+            raise AssertionError(f"{name}: device-mode outputs not tensors on the card: "
+                                 f"{line[name]['device_tensors']}")
+    missing = [k for k in SS_DEVICE_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the ss device path: {missing}")
+    recorded = {RING_KERNELS[name][0]: sum(n for (nm, _), n in rec.counts.items() if nm == name)
+                for name in RING_KERNELS}
+    if recorded != launches:
+        raise AssertionError(f"ring launches {launches}, recorded at the wrappers {recorded}")
+    plain = {"reduce": cuda_ring.reduce_plain, "mul": cuda_ring.mul_plain,
+             "matmul": cuda_ring.matmul_plain, "dot": cuda_ring.dot_plain}
+    compared: list = []
+    for name, found in rec.args.items():
+        sym, replaces = RING_KERNELS[name]
+        real = rec.real[name]
+        order = sorted(found, key=lambda k: rec.counts[(name, k)] * _ring_work(name, k)[0],
+                       reverse=True)
+        for i, key in enumerate(order):
+            a = found[key]
+            nbytes, ops = _ring_work(name, key)
+            TIMING = i < RING_TIMED_SHAPES
+            target = kernels if TIMING else compared
+            try:
+                _check(torch, target, f"{sym} {list(key)}", sym, "sfgwas_tpu_torch/csrc/ring.cu",
+                       replaces, list(key), lambda: [real(*a)], lambda: [plain[name](*a)],
+                       max(5, min(100, int(2e8 // (nbytes + 1)))), 1, nbytes, ops)
+            finally:
+                TIMING = True
+            target[-1].update(launches=launches[sym], path="ss_device",
+                              launches_at_shape=rec.counts[(name, key)])
+    del rec
+    line.update(compared_without_timing=_equal_only(compared, "ss_device"),
+                phase_s=time.time() - t_phase)
     return line
 
 
@@ -2299,7 +2659,8 @@ def _study_files(root: str, seed: int, n_loc: int, sizes, cfg_src: str, override
     return data, path
 
 
-def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: bool = False):
+def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: bool = False,
+                 pca_budget=None):
     """Wrappers for one CLI run: each party's collective_init timed with its
     bundle's keys_from_cache, each key-directory write timed, party 1's
     spans (prof on: the totals and each span as it ended), the calls of
@@ -2311,7 +2672,7 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: boo
     inputs right after it (bit equality, launches counted per row count of
     the product; with keep_first, the first launch's inputs are kept for the
     timed record, with keep_rows too the first launch's at each row
-    count)."""
+    count).  pca_budget, where given, is distributed_pca's device_budget."""
     from sfgwas_tpu_torch.gwas import matmult as MM
     from sfgwas_tpu_torch.gwas import pca as PP
     from sfgwas_tpu_torch.gwas import protocol as GP
@@ -2329,6 +2690,8 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: boo
         def wrapped(*a, **k):
             with lock:
                 got["pca_calls"] += 1
+            if pca_budget is not None:
+                k["device_budget"] = pca_budget
             return real(*a, **k)
         return wrapped
 
@@ -2419,7 +2782,8 @@ def _study_hooks(torch, k2_inline: bool, keep_first: bool = True, keep_rows: boo
 
 def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
                 platform=None, overrides=None, pca_snps=None, resume_flags=None,
-                logistic: bool = False, householder: bool = False, routed: bool = False):
+                logistic: bool = False, householder: bool = False, routed: bool = False,
+                pca_budget=None):
     """The study's two CLI runs (cli.main with --local-sim 3, and with
     --platform only where given; platform=None is the card): the files and
     config from the seed in a temporary directory (removed at the end),
@@ -2516,7 +2880,7 @@ def _study_runs(torch, seed: int, out_dir: str, n_loc: int, sizes, cfg_src: str,
             if platform is not None:
                 argv += ["--platform", platform]
             hooks, got = _study_hooks(torch, k2_inline=checked, keep_rows=logistic,
-                                      keep_first=name == "fresh")
+                                      keep_first=name == "fresh", pca_budget=pca_budget)
             rec = _collective_recorder(k3=True) if checked else None
             if cuda:
                 torch.cuda.empty_cache()
@@ -3144,7 +3508,7 @@ def _tcp_run(name: str, d: str, cfgs: list, kernels: list, out_dir: str,
 def tcp_study_phase(torch, seed: int, out_dir: str, kernels: list, n_loc: int = 1000,
                     sizes=STUDY_BLOCKS, platform=None, overrides=None) -> dict:
     """Phase 11: the study of phase 10 at the depth `sizes` gives (2 x 1000
-    individuals, 5 covariates, main() runs the first 2 of the config's 22
+    individuals, 5 covariates, main() runs the first of the config's 22
     blocks; the default is all 22), configGlobalSkipPCA.toml's
     flags) as three party processes over loopback TCP, each `cli.main` with
     its PID and its local config and no --platform (the card), fresh, then
@@ -3262,16 +3626,22 @@ def tcp_study_phase(torch, seed: int, out_dir: str, kernels: list, n_loc: int = 
 # the shipped configuration: PCA on (5 PCs, 10 oversampling columns, cholqr2,
 # 5 shifted-QR iterations an eigenvalue), QC from the plink2 counts
 PCA_CONFIG = "config/configGlobal.toml"
-# the first 2 of the config's 22 blocks: cut from 3 when phase 15 took the
-# whole script past 1,140 of its 1,200 s on the H100 (about 1,145 s); QC
-# then keeps fewer SNPs than PCA_SNPS, and LD pruning keeps them all
-PCA_BLOCKS = STUDY_BLOCKS[:2]
+# the first block of the config's 22: cut from 3 when phase 15 took the
+# whole script past 1,140 of its 1,200 s on the H100 (about 1,145 s), from 2
+# to make room for phase 16; QC then keeps fewer SNPs than PCA_SNPS, and LD
+# pruning keeps them all.  The device budget of the diagonal caches is cut
+# with the blocks (pca_device_budget), so that the cut study takes the
+# host-streamed path that the example's 22 blocks take
+PCA_BLOCKS = STUDY_BLOCKS[:1]
 PCA_SNPS = 10_000  # LD-pruned SNPs: the example's order (sfgwas_tpu/gwas/pca.py:60-61)
 PCA_POWER_ITERS = 1  # of the config's 20
 # shifted-QR iterations an eigenvalue, of the config's 5 (tests/test_torch_pca.py
-# runs 2 too): cut when the whole script ran past its 1,200 s on an H100; the
-# SS eigendecomposition of the 15 x 15 Gram took 182 of the fresh run's 313 s
-PCA_EIGEN_ITERS = 2
+# runs 2): cut to 2 when the whole script ran past its 1,200 s on an H100 (the
+# SS eigendecomposition of the 15 x 15 Gram took 182 of the fresh run's 313
+# s), to 1 to make room for phase 16 (a 15 x 15 Gram with two dominant
+# eigenvalues keeps both eigenvalues and its top two eigenvectors in the
+# span of the top five rows at 1 iteration, on the CPU)
+PCA_EIGEN_ITERS = 1
 PCA_NPOP, PCA_FST = 3, 0.05  # Balding-Nichols subpopulations
 PCA_SHIFT = (0.0, 0.8, -0.8)  # the phenotype's mean in each subpopulation
 PCA_MIN_COS = 0.99  # |cos| of each of the top two exact PCs with span(Qpc)
@@ -3380,7 +3750,17 @@ def _pca_study_runs(torch, seed: int, out_dir: str, n_loc: int = 1000, sizes=PCA
     fields.update(overrides or {})
     return _study_runs(torch, seed, out_dir, n_loc, sizes, os.path.join(root, PCA_CONFIG),
                        platform=platform, overrides=fields, pca_snps=pca_snps,
-                       resume_flags=PCA_RESUME)
+                       resume_flags=PCA_RESUME, pca_budget=pca_device_budget(len(sizes)))
+
+
+def pca_device_budget(nblocks: int) -> int:
+    """distributed_pca's device budget for a study cut to nblocks of the
+    example's 22: the port's default (the reference's 6 GiB) times
+    nblocks / 22, the share of the example's diagonal caches that the cut
+    study holds."""
+    from sfgwas_tpu_torch.gwas import pca as PP
+
+    return PP.DEVICE_CACHE_BYTES * nblocks // len(STUDY_BLOCKS)
 
 
 def _pca_spans(spans) -> dict:
@@ -3401,9 +3781,10 @@ def pca_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     PN14QP438, 2 x 1000 individuals, 5 covariates, 5 PCs with 10
     oversampling columns (kp 15), cholqr2, QC from the counts at
     config/configGlobal.toml's thresholds, LD pruning at 100,000 bp to at
-    most 10,000 SNPs (host-streamed diagonal caches), the first 2 of the
-    config's 22 blocks, 1 of its 20 power iterations and 2 of its 5
-    shifted-QR iterations an eigenvalue; run 1 fresh, run 2
+    most 10,000 SNPs (host-streamed diagonal caches, the device budget cut
+    with the blocks), the first of the config's 22 blocks, 1 of its 20
+    power iterations and 1 of its 5 shifted-QR iterations an eigenvalue;
+    run 1 fresh, run 2
     resumed from the decrypted PCs and the other caches.  Then K2 timed at
     its first launch (a PCA shape) and every other kernel at each shape of
     run 1 that no earlier phase checked.  Appends the kernels' records to
@@ -3426,6 +3807,8 @@ def pca_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
         "population": {"subpopulations": PCA_NPOP, "fst": PCA_FST, "shift": PCA_SHIFT},
         "reduced": {"snps": [int(sum(STUDY_BLOCKS)), int(sum(sizes))],
                     "blocks": [len(STUDY_BLOCKS), len(sizes)],
+                    "device_budget_bytes": [pca_device_budget(len(STUDY_BLOCKS)),
+                                            pca_device_budget(len(sizes))],
                     "power_iterations": [20, PCA_POWER_ITERS],
                     "eigen_iterations": [5, PCA_EIGEN_ITERS],
                     "pruned_snps": [PCA_SNPS, checks["pruned"]],
@@ -3698,6 +4081,29 @@ LOGISTIC_SNP_EFFECTS = (0.6, -0.5, 0.4)
 LOGISTIC_K2_A_BLOCK = 4
 
 
+# phase 13's first SS inverse: the first Newton epoch's Hessian is c I (the
+# orthonormal basis of [1 | C], weights 1/4), so A + A^T is 111.8034 I plus
+# the noise of its HE products, as --card-runs revealed it (run BR)
+NEAR_SCALAR = 55.9017
+NEAR_SCALAR_OFF = 2.3e-7  # the off-diagonals' noise, uniform in +-
+NEAR_SCALAR_DIAG = 1.4e-6  # the diagonal's noise
+INVERSE_TOL = 1e-3  # of max |eig(B^T B (A + A^T)) - 1|; a lost direction is ~0.95
+
+
+def near_scalar_input(seed: int = 0, k: int = 6) -> np.ndarray:
+    """A k x k input of the SS inverse like phase 13's first: NEAR_SCALAR I
+    plus symmetric off-diagonal and diagonal noise, from the seed."""
+    rng = np.random.default_rng(seed)
+    off = np.triu(rng.uniform(-NEAR_SCALAR_OFF, NEAR_SCALAR_OFF, size=(k, k)), 1)
+    diag = rng.uniform(-NEAR_SCALAR_DIAG, NEAR_SCALAR_DIAG, size=k)
+    return NEAR_SCALAR * np.eye(k) + off + off.T + np.diag(diag)
+
+
+def inverse_sqrt_error(A: np.ndarray, B: np.ndarray) -> float:
+    """How far B is from B^T B = (A + A^T)^-1: max |eig(B^T B (A + A^T)) - 1|."""
+    return float(np.abs(np.linalg.eigvals(B.T @ B @ (A + A.T)) - 1).max())
+
+
 def _logistic_data(seed: int, n_loc: int, m: int, ncov: int = 5):
     """Phase 13's data from the seed, per data party: phase 9's genotypes
     (MAF uniform in [0.02, 0.5], about 1% missing) and covariates (phase
@@ -3810,7 +4216,7 @@ def logistic_spans(events) -> dict:
             "score_blocks": parts["score_block"]}
 
 
-def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
+def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list):
     """Phase 13: the logistic study through the CLI, cli.main with
     --local-sim 3 and no --platform (the card), at
     config/configGlobalLogistic.toml's width: PN14QP438, QC from the counts
@@ -3821,14 +4227,20 @@ def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     each row count (6: g^T W z B^T; 1: the squared block's g^T W g) and
     every other kernel at each shape of the run that no earlier phase
     checked.  Appends the kernels' records to `kernels`; returns the
-    phase's record."""
+    phase's record and, for phase 16, what each party's first SS inverse
+    (the first Newton epoch's) started from and gave (_FirstCalls)."""
     from sfgwas_tpu_torch.crypto.params import get_params
     from sfgwas_tpu_torch.gwas import matmult as MM
+    from sfgwas_tpu_torch.mpc import linalg as LA
 
     params = get_params("PN14QP438")
     n_loc, sizes = 1000, LOGISTIC_BLOCKS
     t_phase = time.time()
-    data, runs = _logistic_study_runs(torch, seed, out_dir, n_loc, sizes)
+    inverses = _FirstCalls(LA, "matrix_inverse_sqrt_svd")  # the first, for phase 16
+    try:
+        data, runs = _logistic_study_runs(torch, seed, out_dir, n_loc, sizes)
+    finally:
+        inverses.restore()
     checks = logistic_study_check(data, runs, n_loc, LOGISTIC_RUN_EPOCHS)
     fresh = runs["fresh"]
     k2 = fresh["k2"]
@@ -3889,7 +4301,7 @@ def logistic_study_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     del rec
     line.update(k1_new_shapes_total_ms=k1_total, k1_shapes=k1_shapes, tree_shapes=tree_shapes,
                 phase_s=time.time() - t_phase)
-    return line
+    return line, inverses.snaps
 
 
 # ---------------------------------------------------------------------------
@@ -4424,7 +4836,7 @@ def main() -> int:
     # ---- 6. the MHE collective layer
     mhe = mhe_phase(torch, args.seed, out_dir, kernels)
     # ---- 7. the SS domain and the SS<->HE bridge
-    ss = ss_phase(torch, args.seed, out_dir, kernels)
+    ss, sqrt_snaps = ss_phase(torch, args.seed, out_dir, kernels)
     # ---- 8. the CholeskyQR2 covariate basis
     qr = qr_phase(torch, args.seed, out_dir, kernels)
     # ---- 9. the linear association phase
@@ -4444,7 +4856,11 @@ def main() -> int:
     # ---- 12. the default-config study with PCA through the CLI
     pca_study = pca_study_phase(torch, args.seed, out_dir, kernels)
     # ---- 13. the logistic study through the CLI
-    logistic_study = logistic_study_phase(torch, args.seed, out_dir, kernels)
+    logistic_study, inverse_snaps = logistic_study_phase(torch, args.seed, out_dir, kernels)
+    # ---- 16. the SS domain's device mode: phase 7's square root and phase
+    # 13's first inverse replayed with the shares on the card
+    ss_device = ss_device_phase(torch, sqrt_snaps, inverse_snaps, kernels)
+    del sqrt_snaps, inverse_snaps
     # the shapes --tree times: K1's of one product, K4's of every path,
     # bs_mask's and K6's of the collective phases
     shapes = {"preset": "PN14QP438", "k1": k1_shapes, "uniform_mod": k4_shapes, "bs_mask": [],
@@ -4485,6 +4901,7 @@ def main() -> int:
         "k1_total_ms": k1_total,
         "mhe": mhe,
         "ss": ss,
+        "ss_device": ss_device,
         "qr": qr,
         "assoc": assoc,
         "study": study,

@@ -1,6 +1,6 @@
 """Where phase 13's logistic statistics stand against the plaintext oracles.
 
-Five modes:
+Six modes:
 
   python scripts/logistic_oracle_gap.py --stats chiprun_out/assoc_logistic.txt \
       --blocks 1 --epochs 2
@@ -52,6 +52,19 @@ that --card-runs revealed, once for each PRG key (Philox [seed, pid],
 seeds --first-seed onwards), and prints the output's error against numpy's inverse:
 whether a failure comes with that input or with the masks.  About 30 s a
 seed here.
+
+  python scripts/logistic_oracle_gap.py --sweep 40 --workers 4
+
+runs the 6 x 6 SS inverse (matrix_inverse_sqrt_svd) of both packages, the
+port's and the JAX package's, at three parties on the CPU on the
+near-scalar input of phase 13's first Newton epoch
+(chip_smoke.near_scalar_input at --seed), once for each of N PRG keys
+(Philox [key, pid], keys --first-seed onwards), and prints each run's
+max |eig(B^T B (A + A^T)) - 1| and each package's failures (above
+chip_smoke.INVERSE_TOL): the JAX package's Householder loses P's
+orthogonality on near-zero columns (ROADMAP C), the port's brings them to
+unit scale first.  About 20 s a key and package here, spread over
+--workers processes.
 """
 
 import argparse
@@ -256,6 +269,55 @@ def replay_mode(args):
               flush=True)
 
 
+def _sweep_one(job):
+    """One key of --sweep in a worker process: (package, key, error, seconds)."""
+    import time
+
+    pkg, key, seed = job
+    if pkg == "jax":
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+        from sfgwas_tpu.mpc import linalg as L
+        from sfgwas_tpu.parallel import simulate as S
+    else:
+        from sfgwas_tpu_torch.mpc import linalg as L
+        from sfgwas_tpu_torch.parallel import simulate as S
+    A = cs.near_scalar_input(seed)
+    k = A.shape[0]
+
+    def party(mpc):
+        mpc.rand.table[mpc.pid] = np.random.Generator(np.random.Philox(key=[key, mpc.pid]))
+        sh = S.make_shares(mpc, [int(round(v * (1 << mpc.frac_bits))) for v in A.reshape(-1)])
+        B = L.matrix_inverse_sqrt_svd(mpc, sh.reshape((k, k) + sh.shape[1:]))
+        return S.reveal_ints(mpc, B.reshape((k * k,) + B.shape[2:])), mpc.ring.modulus, \
+            mpc.frac_bits
+
+    t = time.time()
+    ints, q, fb = S.run_parties(3, party)[1]
+    Bf = np.array([(int(v) - q if int(v) > q // 2 else int(v)) / (1 << fb)
+                   for v in ints]).reshape(k, k)
+    return pkg, key, cs.inverse_sqrt_error(A, Bf), time.time() - t
+
+
+def sweep_mode(args):
+    import multiprocessing
+
+    keys = range(args.first_seed, args.first_seed + args.sweep)
+    jobs = [(pkg, key, args.seed) for key in keys for pkg in ("port", "jax")]
+    failed = {"port": [], "jax": []}
+    with multiprocessing.get_context("spawn").Pool(args.workers) as pool:
+        for pkg, key, err, secs in pool.imap_unordered(_sweep_one, jobs):
+            if not err <= cs.INVERSE_TOL:
+                failed[pkg].append(key)
+            print(f"  {pkg} key {key}: max |eig(B^T B (A + A^T)) - 1| {err:.3e} ({secs:.1f} s)",
+                  flush=True)
+    for pkg in ("port", "jax"):
+        print(f"{pkg}: {len(failed[pkg])} of {len(keys)} keys failed (above "
+              f"{cs.INVERSE_TOL}): {sorted(failed[pkg])}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stats", help="a phase-13 run's assoc_logistic.txt")
@@ -269,6 +331,8 @@ def main():
     ap.add_argument("--replay-index", type=int, default=0, help="which inverse of the run")
     ap.add_argument("--seeds", type=int, default=4)
     ap.add_argument("--first-seed", type=int, default=0)
+    ap.add_argument("--sweep", type=int, default=0, help="keys of the near-scalar inverse")
+    ap.add_argument("--workers", type=int, default=4)
     args = ap.parse_args()
     if args.probe:
         probe_mode(args)
@@ -280,8 +344,11 @@ def main():
         card_mode(args)
     elif args.replay:
         replay_mode(args)
+    elif args.sweep:
+        sweep_mode(args)
     else:
-        ap.error("give --stats FILE, --fit FILE, --probe, --card-runs N or --replay FILE")
+        ap.error("give --stats FILE, --fit FILE, --probe, --card-runs N, --replay FILE or "
+                 "--sweep N")
 
 
 if __name__ == "__main__":

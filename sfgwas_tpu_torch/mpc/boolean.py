@@ -22,7 +22,7 @@ import numpy as np
 
 from ..ops import ring as R
 from ..ops.ring import GF2
-from .mpc import _bits_lsb
+from .mpc import _bits_lsb, _np
 
 
 def _to_pow2(mpc, a, plus_one_shift: bool):
@@ -36,7 +36,7 @@ def _to_pow2(mpc, a, plus_one_shift: bool):
     el = ring.mul_int(el, 1 << 15)
     # canonical field digits < modulus < 2^bits2N: same digit array is a
     # valid pow2-ring element
-    x2 = np.asarray(el)
+    x2 = _np(el)
     if ring2.nlimb != ring.nlimb:  # pragma: no cover
         raise ValueError("ring/pow2 companion digit mismatch")
     x2 = ring2.reduce(x2)
@@ -247,6 +247,9 @@ def normalizer_even_exp_2n(mpc, a, k):
     hb_field = bit2a(mpc, half.reshape(n * num_half)).reshape(
         (n, num_half, ring.nlimb)
     )
+    dev = R._dev(a)
+    if not ring.host and dev is not None:  # the weighted sums below are its widest op
+        hb_field = R.to_device(hb_field, dev)
 
     # coefficients 4^{j+1} - 4^j and 2^{j+1} - 2^j mod p
     p = ring.modulus

@@ -30,8 +30,38 @@ def _bc(ring, const_digits, shape):
     return np.broadcast_to(np.asarray(const_digits), tuple(shape) + (ring.nlimb,))
 
 
+def unit_scale(mpc: MPC, x):
+    """x times a secret power of two, x' = 2^j x / 2^t with ||x'|| in
+    [1/2, 1), for every x whose squared norm the Householder's square root
+    takes (||x||^2 < 2^(kb - fb)); x' = 0 for x = 0.
+
+    The Householder vector v(x) is invariant under x -> a x for a > 0, but
+    the Go sfgwas forms it from ||x||^2 truncated to fb fraction bits: near
+    ||x||^2 ~ 2^-fb only a few bits of it are left, vnorm_inv is then wrong
+    and P = I - 2 v v^T is not orthogonal (a near-scalar matrix's
+    eigensolver reflects such near-zero columns; ROADMAP C).  The sum of
+    squares is exact before its truncation (2 fb fraction bits), so its
+    even-power-of-two normaliser 4^j, with 4^j sum in [2^(2h-2), 2^(2h)),
+    h = ceil((kb + fb) / 2), brings 2^j x to norm [2^(h-1), 2^h) in units
+    of 2^-fb, and a truncation by h - fb bits to [1/2, 1).  The cost is one
+    Beaver round, a reshare, the normaliser, one multiply and one
+    truncation."""
+    kb, fb = mpc.data_bits, mpc.frac_bits
+    half = (kb + fb + 1) // 2
+    xr, xm = mpc.beaver_partition(x)
+    z = mpc.ring.sum(mpc.beaver_mult_elem(xr, xm, xr, xm), axis=0)[None]
+    z = mpc.beaver_reconstruct(z)  # sum of squares at 2 fb fraction bits, untruncated
+    _, root = mpc.normalizer_even_exp(z, 2 * half, mpc.boolean_shares)
+    x = ss_mult_vec_scalar(mpc, x, root[0])
+    return mpc.trunc(x, kb, half - fb) if half > fb else x
+
+
 def householder(mpc: MPC, x):
-    """Householder vector of a shared vector (mpc/mpc.go:2276-2324)."""
+    """Householder vector of a shared vector (mpc/mpc.go:2276-2324), of x
+    brought to unit scale first (unit_scale: the Go sfgwas, and
+    sfgwas_tpu/mpc/linalg.py:32-67, form it from x as it is, and lose P's
+    orthogonality at ||x|| ~ 2^(-fb/2))."""
+    x = unit_scale(mpc, x)
     ring = mpc.ring
     kb, fb = mpc.data_bits, mpc.frac_bits
     is_binary = mpc.boolean_shares

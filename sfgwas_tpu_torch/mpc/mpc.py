@@ -1,9 +1,13 @@
 """Core MPC engine: additive secret sharing over a prime field with a
 PRG-based online dealer (party 0) (counterpart of sfgwas_tpu/mpc/mpc.py).
 
-Shares are int32 digit arrays ([n, nlimb], ops/ring.py) in host numpy; all
-elementwise protocol math is vectorized over the data axis.  The structure
-follows the Go sfgwas' mpc/mpc.go, beavermult.go and ss.go:
+Shares are int32 digit arrays ([n, nlimb], ops/ring.py), in host numpy or
+as torch tensors on a device.  For a ring in device mode (ring.host False)
+the data parties' Beaver masks are staged on the device of the shares they
+mask, so every product, reveal sum and truncation of tensor shares runs
+there, and only the exchanged messages cross to the host.  All elementwise
+protocol math is vectorized over the data axis.  The structure follows
+the Go sfgwas' mpc/mpc.go, beavermult.go and ss.go:
   * BeaverPartition / BeaverMult / BeaverReconstruct with an online dealer
     deriving masks from pairwise PRGs -- no precomputed triples;
   * probabilistic truncation after fixed-point multiplies (TruncMat);
@@ -26,6 +30,7 @@ import math
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..ops import ring as R
 from ..parallel.transport import Network
@@ -34,8 +39,22 @@ from ..utils.log import log
 from .prg import Random
 
 
-def _np(x):
-    return np.asarray(x)
+_np = R.to_host
+
+
+def _staged(ring, mask, *shares):
+    """A host draw masking one of `shares` (the operands of one product):
+    on their device in device mode, else as it is."""
+    dev = R._dev(*shares)
+    return mask if ring.host or dev is None else R.to_device(mask, dev)
+
+
+def _cat(xs):
+    """Concatenation along the first axis that keeps tensors on their device."""
+    dev = R._dev(*xs)
+    if dev is not None:
+        return torch.cat([R.to_device(x, dev) for x in xs])
+    return np.concatenate(xs)
 
 
 class MPC:
@@ -128,7 +147,7 @@ class MPC:
                 am = ring.add(am, mask)
             return ring.zeros(shape), am
         with self.rand.using(0) as _:
-            mask = ring.rand(self.rand.cur(), shape)
+            mask = _staged(ring, ring.rand(self.rand.cur(), shape), a)
         ar = ring.sub(a, mask)
         ar = self.reveal_sym(ar, ring)
         return ar, mask
@@ -153,7 +172,7 @@ class MPC:
         masks, ars = [], []
         for x, shape in zip(xs, shapes):
             with self.rand.using(0) as _:
-                mask = ring.rand(self.rand.cur(), shape)
+                mask = _staged(ring, ring.rand(self.rand.cur(), shape), *xs)
             masks.append(mask)
             ars.append(ring.sub(x, mask))
         # reveal is elementwise: flatten (keeping the limb axis for digit
@@ -162,14 +181,14 @@ class MPC:
         L = getattr(ring, "nlimb", None)
         full_shapes = [tuple(a.shape) for a in ars]
         if L is not None:
-            flat = np.concatenate([np.reshape(a, (-1, L)) for a in ars])
+            flat = _cat([a.reshape((-1, L)) for a in ars])
         else:
-            flat = np.concatenate([np.reshape(a, (-1,)) for a in ars])
+            flat = _cat([a.reshape((-1,)) for a in ars])
         flat = self.reveal_sym(flat, ring)
         out, ofs = [], 0
         for fs in full_shapes:
             cnt = int(np.prod(fs[:-1] if L is not None else fs)) if fs else 1
-            out.append(np.reshape(flat[ofs : ofs + cnt], fs))
+            out.append(flat[ofs : ofs + cnt].reshape(fs))
             ofs += cnt
         return out, masks
 
@@ -318,9 +337,9 @@ class MPC:
         # instead of one per term -- the per-term version dominated the
         # protocol profile) and segment-summed into the rows.
         t = _pascal(pow_)
-        ampow = np.asarray(ampow)
-        AR = np.concatenate([np.asarray(ar)[None], np.stack(arpow)])  # powers 1..pow_
-        AM = np.concatenate([np.asarray(am)[None], ampow])  # powers 1..pow_
+        ampow = _np(ampow)
+        AR = np.concatenate([_np(ar)[None], np.stack([_np(x) for x in arpow])])  # powers 1..pow_
+        AM = np.concatenate([_np(am)[None], ampow])  # powers 1..pow_
         I, J, Pp, Cs = [], [], [], []
         for p in range(2, pow_ + 1):
             for j in range(1, p):
@@ -346,7 +365,7 @@ class MPC:
             rows[0] = ring.ones((n,))
             # public term ar^p (only party 1 adds public values)
             rows[2:] = AR[1:]
-        rows[1] = a
+        rows[1] = _np(a)
         rows[2:] = ring.add(ring.add(rows[2:], acc[2:]), AM[1:])
         return rows
 
@@ -795,7 +814,7 @@ class MPC:
                 )
                 outs.append(o)
                 outs_inv.append(oi)
-            return np.concatenate(outs), np.concatenate(outs_inv)
+            return _cat(outs), _cat(outs_inv)
 
         pid = self.pid
         kb, fb = self.data_bits, self.frac_bits
@@ -830,14 +849,14 @@ class MPC:
         # mpc/mpc.go:1991-2080; stacking serves the same round count with
         # half the per-step protocol messages of the naive loop)
         onept5 = ring.const_np(int(round(1.5 * (1 << fb))))
-        gh = np.concatenate([g, h])
+        gh = _cat([g, h])
         for _ in range(num_iter):
             r = self.ss_mult_elem(gh[n:], gh[:n])
             r = self.trunc(r, kb, fb)
             r = ring.neg(r)
             if pid == 1:
                 r = ring.add(r, np.broadcast_to(onept5, r.shape))
-            gh = self.ss_mult_elem(gh, np.concatenate([r, r]))
+            gh = self.ss_mult_elem(gh, _cat([r, r]))
             gh = self.trunc(gh, kb, fb)
         return gh[:n], ring.mul_int(gh[n:], 2)
 
@@ -961,7 +980,7 @@ def _lagrange_interp_simple(ys, p):
 
 def _bits_lsb(ring, vals, nbits, bitring):
     """Bits (LSB first) of canonical digit values -> bitring array [n, nbits]."""
-    v = np.asarray(vals)
+    v = _np(vals)
     n = v.shape[0]
     out = np.zeros((n, nbits), dtype=np.int8 if bitring is R.GF2 else np.int32)
     for b in range(nbits):

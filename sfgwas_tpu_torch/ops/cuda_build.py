@@ -36,7 +36,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("ntt", "mac_dense", "ks_digit", "crp", "bs_share", "crt_lift")
+SOURCES = ("ntt", "mac_dense", "ks_digit", "crp", "bs_share", "crt_lift", "ring")
 
 
 def _nvcc() -> str:

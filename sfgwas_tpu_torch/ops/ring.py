@@ -1,9 +1,8 @@
-"""Limb-based modular ring arithmetic for the MPC secret-sharing domain, on
-the host (counterpart of sfgwas_tpu/ops/ring.py without its jitted device
-methods).
+"""Limb-based modular ring arithmetic for the MPC secret-sharing domain
+(counterpart of sfgwas_tpu/ops/ring.py).
 
 Ring elements are little-endian base-2^8 digit vectors stored in int32
-numpy arrays of shape ``[..., nlimb]``:
+arrays of shape ``[..., nlimb]``:
 
 * moduli are "delta below a power of two": p256 = 2^256 - 189 and
   p128 = 2^127 - 1.  This is what makes the prime -> power-of-two share
@@ -24,9 +23,19 @@ construction, and the native engine (ops/native_ring.py) takes int32 inputs
 only, so every constant and every producer here returns int32.  A ring
 built with native=False runs the numpy path alone (the engine's oracle).
 
-The SS tensors stay in host numpy on purpose: they are small tensors
-stepped in lockstep, one protocol round at a time, where a device dispatch
-per op would cost more than the digit arithmetic.
+Every op has a host path (numpy, the native engine) and a device path
+(int32 torch tensors) with the same results.  Numpy inputs take the host
+path; tensors among the inputs take the device path, on their device
+(numpy operands are staged there as int32; tensors on two devices raise):
+the CUDA kernels K8-K11 of ops/cuda_ring.py for CUDA tensors, their plain
+torch versions for CPU tensors.  So a share given as a tensor selects
+where the work runs.  The SS protocol layer stays on the host by default
+(Ring.host = True, as the reference's): its tensors are small and stepped
+in lockstep, one protocol round at a time, where a device dispatch per op
+costs more than the digit arithmetic.  A ring whose `host` is set to False
+runs in device mode: the MPC layer stages each Beaver mask on the device
+of the shares it masks (mpc/mpc.py), once, where host mode would copy it
+to that device at every op that reads it.
 """
 
 from __future__ import annotations
@@ -34,24 +43,74 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
-from . import native_ring
+from . import cuda_ring, native_ring
 
 DIGIT_BITS = 8
 DIGIT_MASK = (1 << DIGIT_BITS) - 1
 
 
+def to_host(x) -> np.ndarray:
+    """x as a numpy array (a tensor is copied to the host)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _dev(*xs):
+    """The device of the tensors among xs, or None when all are host
+    arrays.  Tensors on two devices raise: an op never moves a share
+    between devices on its own."""
+    devs = {x.device for x in xs if isinstance(x, torch.Tensor)}
+    if len(devs) > 1:
+        raise ValueError(f"ring operands on different devices: {sorted(map(str, devs))}")
+    return devs.pop() if devs else None
+
+
+def to_device(x, device) -> torch.Tensor:
+    """x as an int32 tensor on `device`; a host array is copied (a
+    broadcast numpy view as the array it views, broadcast there)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32)
+    x = np.asarray(x, dtype=np.int32)
+    if x.size and 0 in x.strides:
+        base = x[tuple(slice(0, 1) if st == 0 else slice(None) for st in x.strides)]
+        return torch.tensor(base, device=device).expand(x.shape)
+    return torch.tensor(x, device=device)
+
+
+def _dense_on(arr, dev) -> torch.Tensor:
+    """A writable dense copy of arr on `dev` (a host array as int32)."""
+    return to_device(arr, dev) if not isinstance(arr, torch.Tensor) else arr.clone()
+
+
 def aset(arr, idx, val):
-    """Indexed set on a copy (the functional .at[].set() semantics)."""
+    """Indexed set on a copy (the functional .at[].set() semantics); with a
+    tensor among arr and val the copy is a tensor on its device."""
+    dev = _dev(arr, val)
+    if dev is not None:
+        out = _dense_on(arr, dev).contiguous()
+        out[idx] = to_device(val, dev).to(out.dtype)
+        return out
     out = np.array(arr)
-    out[idx] = np.asarray(val)
+    out[idx] = to_host(val)
     return out
 
 
 def aadd(arr, idx, val):
-    """Indexed add on a copy (scatter-add for repeated indices)."""
+    """Indexed add on a copy (scatter-add for repeated indices); with a
+    tensor among arr and val the copy is a tensor on its device."""
+    dev = _dev(arr, val)
+    if dev is not None:
+        out = _dense_on(arr, dev).contiguous()
+        pos = torch.arange(out.numel(), device=dev).reshape(out.shape)[idx]
+        v = to_device(val, dev).to(out.dtype).broadcast_to(pos.shape)
+        flat = out.reshape(-1)
+        flat.index_add_(0, pos.reshape(-1), v.reshape(-1))
+        return flat.reshape(out.shape)
     out = np.array(arr)
-    np.add.at(out, idx, np.asarray(val))
+    np.add.at(out, idx, to_host(val))
     return out
 
 
@@ -61,6 +120,7 @@ class Ring:
     at first use; native=False keeps the numpy path."""
 
     has_limbs = True
+    host = True  # False: the MPC layer stages the Beaver masks where the shares lie
 
     def __init__(self, modulus: int, kind: str, name: str = "", native: bool = True):
         assert kind in ("prime", "pow2")
@@ -127,7 +187,7 @@ class Ring:
 
     def to_ints(self, digits) -> np.ndarray:
         """Canonical digit array -> array of python ints (object dtype)."""
-        d = np.asarray(digits)
+        d = to_host(digits)
         shape = d.shape[:-1]
         flat = d.reshape(-1, self.nlimb)
         out = np.empty(len(flat), dtype=object)
@@ -154,7 +214,7 @@ class Ring:
         exact borrow-propagated M - v, then a uint64 fold of the low 8
         digits (fixed-point protocol values are below 2^64 in magnitude;
         anything larger takes the exact per-element bignum loop)."""
-        d = np.asarray(digits, dtype=np.int64)
+        d = to_host(digits).astype(np.int64)
         scalar = d.ndim == 1
         d2 = d.reshape(-1, self.nlimb)
         neg = self._is_negative_digits(d2)
@@ -233,17 +293,30 @@ class Ring:
             self._cache[key] = c
         return self._cache[key]
 
-    const = const_np
+    def const(self, v: int, device=None):
+        """Digits of a python int constant: host int32 (const_np), or a
+        cached int32 tensor on `device`."""
+        if device is None:
+            return self.const_np(v)
+        v = int(v) % self.modulus
+        device = torch.device(device)
+        key = ("const_dev", v, str(device))
+        if key not in self._cache:
+            self._cache[key] = torch.as_tensor(self.const_np(v).copy(), device=device)
+        return self._cache[key]
 
-    def pow2_digits(self, e: int) -> np.ndarray:
-        return self.const_np(pow(2, e, self.modulus))
+    def pow2_digits(self, e: int, device=None):
+        return self.const(pow(2, e, self.modulus), device)
 
     def inv_pow2_np(self, m: int) -> np.ndarray:
         """Digits of 2^{-m} mod p (prime only)."""
         assert self.kind == "prime"
         return self.const_np(pow((self.modulus + 1) // 2, m, self.modulus))
 
-    inv_pow2_digits = inv_pow2_np
+    def inv_pow2_digits(self, m: int, device=None):
+        """Digits of 2^{-m} mod p (prime only), on `device` when given."""
+        assert self.kind == "prime"
+        return self.const(pow((self.modulus + 1) // 2, m, self.modulus), device)
 
     # -------------------------------------------------------------- shapes
 
@@ -253,8 +326,12 @@ class Ring:
     def ones(self, shape: Sequence[int]) -> np.ndarray:
         return np.broadcast_to(self.const_np(1), tuple(shape) + (self.nlimb,))
 
-    def from_i32(self, vals) -> np.ndarray:
+    def from_i32(self, vals):
         """int32 array of small nonneg values -> canonical digits."""
+        if isinstance(vals, torch.Tensor):
+            v = vals.to(torch.int32)
+            x = torch.stack([(v >> (DIGIT_BITS * i)) & DIGIT_MASK for i in range(4)], dim=-1)
+            return cuda_ring.reduce(self, torch.nn.functional.pad(x, (0, self.nlimb - 4)))
         v = np.asarray(vals, dtype=np.int64)
         x = np.stack([(v >> (DIGIT_BITS * i)) & DIGIT_MASK for i in range(4)], axis=-1)
         pad = [(0, 0)] * (x.ndim - 1) + [(0, self.nlimb - 4)]
@@ -320,7 +397,10 @@ class Ring:
             x[..., -1] &= self.top_mask
         return x.astype(np.int32)
 
-    reduce = np_reduce
+    def reduce(self, x):
+        """Any signed digit array (at most 2L-1 digits) -> canonical."""
+        d = _dev(x)
+        return self.np_reduce(x) if d is None else cuda_ring.reduce(self, to_device(x, d))
 
     def _np_conv(self, a, b) -> np.ndarray:
         """Digit convolution of canonical arrays -> [..., 2L-1] int64."""
@@ -357,6 +437,9 @@ class Ring:
         return out.reshape(shape)
 
     def add(self, a, b):
+        d = _dev(a, b)
+        if d is not None:
+            return cuda_ring.reduce(self, to_device(a, d) + to_device(b, d))
         lib = self._nlib
         if lib is not None:
             out = self._native_canon2(lib.sfg_ring_add, a, b)
@@ -365,6 +448,9 @@ class Ring:
         return self.np_reduce(np.asarray(a, np.int64) + b)
 
     def sub(self, a, b):
+        d = _dev(a, b)
+        if d is not None:
+            return cuda_ring.reduce(self, to_device(a, d) - to_device(b, d))
         lib = self._nlib
         if lib is not None:
             out = self._native_canon2(lib.sfg_ring_sub, a, b)
@@ -373,6 +459,9 @@ class Ring:
         return self.np_reduce(np.asarray(a, np.int64) - b)
 
     def neg(self, a):
+        d = _dev(a)
+        if d is not None:
+            return cuda_ring.reduce(self, -to_device(a, d))
         lib = self._nlib
         if (
             lib is not None
@@ -387,6 +476,9 @@ class Ring:
         return self.np_reduce(-np.asarray(a, np.int64))
 
     def mul(self, a, b):
+        d = _dev(a, b)
+        if d is not None:
+            return cuda_ring.mul(self, to_device(a, d), to_device(b, d))
         a = np.asarray(a)
         b = np.asarray(b)
         lib = self._nlib
@@ -397,18 +489,26 @@ class Ring:
         return self.np_reduce(self._np_conv(a, b))
 
     def mul_const(self, a, c_digits):
+        if _dev(a, c_digits) is not None:
+            return self.mul(a, c_digits)  # broadcast by the kernel's wrapper
         return self.mul(a, np.broadcast_to(np.asarray(c_digits), np.shape(a)))
 
     def mul_int(self, a, v: int):
         """Multiply by a python int constant (fast path for small |v|)."""
         v = int(v)
+        d = _dev(a)
         if -(1 << 9) < v < (1 << 9):
+            if d is not None:
+                return cuda_ring.reduce(self, to_device(a, d) * v)
             return self.np_reduce(np.asarray(a, np.int64) * v)
-        return self.mul(a, self.const_np(v))
+        return self.mul(a, self.const(v, d))
 
     def matmul(self, A, B):
         """[r, k, L] x [k, c, L] -> [r, c, L]; the numpy path chunks k so
         digit-pair sums stay within the reduce headroom."""
+        d = _dev(A, B)
+        if d is not None:
+            return cuda_ring.matmul(self, to_device(A, d), to_device(B, d))
         A, B = np.asarray(A), np.asarray(B)
         L = self.nlimb
         r, k, _ = A.shape
@@ -439,6 +539,9 @@ class Ring:
         operand."""
         k, L = coeffs.shape
         assert L == self.nlimb and a.shape[-1] == L and a.shape[-2] == k
+        d = _dev(a, coeffs)
+        if d is not None:  # the kernel's sums are wide: no bound on k
+            return cuda_ring.dot(self, to_device(a, d), to_device(coeffs, d))
         a = np.asarray(a)
         c32 = np.asarray(coeffs)
         lib = self._nlib
@@ -456,7 +559,10 @@ class Ring:
 
     def sum(self, a, axis: int = 0):
         """Sum of canonical elements along a batch axis."""
-        assert a.shape[axis] < (1 << 22)
+        assert a.shape[axis] < (1 << 22)  # the digit sums stay below 2^31
+        d = _dev(a)
+        if d is not None:
+            return cuda_ring.reduce(self, torch.sum(to_device(a, d), dim=axis, dtype=torch.int32))
         return self.np_reduce(np.sum(np.asarray(a, np.int64), axis=axis))
 
     # -------------------------------------------------------------- bit ops
@@ -469,12 +575,13 @@ class Ring:
 
     def bits_msb_first(self, a, nbits: int):
         """[..., nbits] bits of the canonical value, MSB first."""
-        return np.stack([self.get_bit(a, nbits - 1 - j) for j in range(nbits)], axis=-1)
+        bits = [self.get_bit(a, nbits - 1 - j) for j in range(nbits)]
+        return torch.stack(bits, dim=-1) if _dev(a) is not None else np.stack(bits, axis=-1)
 
     def trunc_low(self, a, m: int):
         """Keep the low m bits of the canonical value (RVec.Trunc)."""
         d, r = m // DIGIT_BITS, m % DIGIT_BITS
-        out = np.asarray(a).copy()
+        out = a.clone() if isinstance(a, torch.Tensor) else np.asarray(a).copy()
         out[..., d + (1 if r > 0 else 0):] = 0
         if r > 0 and d < self.nlimb:
             out[..., d] &= (1 << r) - 1
@@ -580,6 +687,7 @@ class SmallField:
     elements fit int32 and are reduced after every multiply."""
 
     has_limbs = False
+    host = True
 
     def __init__(self, p: int = 46337):
         self.modulus = p
@@ -625,6 +733,7 @@ class GF2Ring:
 
     has_limbs = False
     modulus = 2
+    host = True  # the GF(2) layer stays on the host in device mode too
 
     def __hash__(self):
         return hash("gf2")

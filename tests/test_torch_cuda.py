@@ -711,3 +711,138 @@ def test_cli_on_card_matches_cpu(dev, tmp_path):
     for (cs, ck), (gs, gk) in zip(out["cpu"], out["card"]):
         np.testing.assert_array_equal(gk, ck)
         assert gs.shape == cs.shape and np.abs(gs - cs).max() < 2e-3
+
+
+# ---- K8-K11: the SS ring's device path (ops/cuda_ring.py, csrc/ring.cu)
+
+RING_NAMES = ["LElem256", "LElem128", "LElem2N256", "LElem2N127"]
+
+
+def _ring(name):
+    from sfgwas_tpu_torch.ops import ring as PR
+
+    return getattr(PR, name)
+
+
+def _ring_elems(ring, shape, seed, dev):
+    """Canonical elements of `shape`, the first two 0 and modulus - 1."""
+    a = np.array(ring.rand(np.random.default_rng(seed), shape)).reshape(-1, ring.nlimb)
+    a[0] = ring.from_ints([0])[0]
+    if len(a) > 1:
+        a[1] = ring.from_ints([ring.modulus - 1])[0]
+    return torch.as_tensor(a.reshape(tuple(shape) + (ring.nlimb,))).to(dev)
+
+
+@pytest.mark.parametrize("lim", [2**8, 2**31 - 1])
+@pytest.mark.parametrize("n,nd", [(1, 1), (129, 3), (1000, "L"), (127, "2L-1"), (5, "2L-1")])
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_ring_reduce_kernel_matches_plain(dev, name, n, nd, lim):
+    """K8 on signed digits in (-lim, lim), at 1..2L-1 digits and element
+    counts off the 128-thread block."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    nd = {"L": ring.nlimb, "2L-1": 2 * ring.nlimb - 1}.get(nd, nd)
+    x = np.random.default_rng(n + nd).integers(-lim, lim, size=(n, nd))
+    x[0] = lim - 1
+    x = torch.as_tensor(x.astype(np.int32)).to(dev)
+    before = cuda_ring.RING_REDUCE.launches
+    got = cuda_ring.reduce(ring, x)
+    torch.cuda.synchronize()
+    assert cuda_ring.RING_REDUCE.launches == before + 1
+    assert torch.equal(got.cpu(), cuda_ring.reduce_plain(ring, x.cpu()))
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [((1,), (1,)), ((129,), (129,)), ((3, 11), (11,)),
+                                             ((1000,), (1,))])
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_ring_mul_kernel_matches_plain(dev, name, shape_a, shape_b):
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    a, b = _ring_elems(ring, shape_a, 1, dev), _ring_elems(ring, shape_b, 2, dev)
+    got = cuda_ring.mul(ring, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cuda_ring.mul_plain(ring, a.cpu(), b.cpu()))
+    # the top value squared: (modulus - 1)^2
+    top = _ring_elems(ring, (2,), 8, dev)[1:]
+    assert torch.equal(cuda_ring.mul(ring, top, top).cpu(),
+                       cuda_ring.mul_plain(ring, top.cpu(), top.cpu()))
+
+
+@pytest.mark.parametrize("r,k,c", [(1, 1, 1), (6, 6, 6), (3, 900, 2), (2, 33, 130)])
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_ring_matmul_kernel_matches_plain(dev, name, r, k, c):
+    """K10 at k past the reference's 896-term chunk, and at every product
+    (modulus - 1)^2 summed k times."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    A, B = _ring_elems(ring, (r, k), 3, dev), _ring_elems(ring, (k, c), 4, dev)
+    before = cuda_ring.RING_MATMUL.launches
+    got = cuda_ring.matmul(ring, A, B)
+    torch.cuda.synchronize()
+    assert cuda_ring.RING_MATMUL.launches == before + 1
+    assert torch.equal(got.cpu(), cuda_ring.matmul_plain(ring, A.cpu(), B.cpu()))
+    top = _ring_elems(ring, (1, 2), 5, dev)[:, 1:].expand(r, k, ring.nlimb).contiguous()
+    topb = top[:1].reshape(k, 1, ring.nlimb).expand(k, c, ring.nlimb).contiguous()
+    assert torch.equal(cuda_ring.matmul(ring, top, topb).cpu(),
+                       cuda_ring.matmul_plain(ring, top.cpu(), topb.cpu()))
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (129, 37), (7, 1000)])
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_ring_dot_kernel_matches_plain(dev, name, n, k):
+    """K11 at the normaliser's 37 terms a value and beyond."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    a, cf = _ring_elems(ring, (n, k), 6, dev), _ring_elems(ring, (k,), 7, dev)
+    before = cuda_ring.RING_DOT.launches
+    got = cuda_ring.dot(ring, a, cf)
+    torch.cuda.synchronize()
+    assert cuda_ring.RING_DOT.launches == before + 1
+    assert torch.equal(got.cpu(), cuda_ring.dot_plain(ring, a.cpu(), cf.cpu()))
+
+
+def test_ring_kernels_raise_on_what_they_cannot_take(dev):
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring("LElem256")
+    with pytest.raises(ValueError):
+        cuda_ring.reduce(ring, torch.zeros((2, 2 * ring.nlimb), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        cuda_ring.mul(ring, torch.zeros((2, 32), dtype=torch.int64, device=dev),
+                      torch.zeros((2, 32), dtype=torch.int64, device=dev))
+
+
+def test_ss_device_mode_on_card_matches_host_mode(dev, monkeypatch):
+    """sqrt_and_sqrt_inverse and a 3 x 3 matrix_inverse_sqrt_svd with the
+    shares on the card (ring.host False) equal host mode bit for bit."""
+    from sfgwas_tpu_torch.mpc import linalg as PL
+    from sfgwas_tpu_torch.ops import ring as PR
+    from sfgwas_tpu_torch.parallel import simulate as PS
+
+    A = np.array([[2.0, 0.3, -0.1], [0.1, 1.5, 0.2], [0.0, 0.4, 3.0]])
+    x = [0.01, 0.5, 3.9, 250.0]
+    vals = [int(round(v * (1 << 30))) for v in list(A.reshape(-1)) + x]
+
+    def run(to_dev):
+        def party(mpc):
+            mpc.rand.table[mpc.pid] = np.random.Generator(np.random.Philox(key=[5, mpc.pid]))
+            sh = PS.make_shares(mpc, vals)
+            sh = torch.as_tensor(sh).to(dev) if to_dev else sh
+            s = mpc.sqrt_and_sqrt_inverse(sh[9:])
+            B = PL.matrix_inverse_sqrt_svd(mpc, sh[:9].reshape((3, 3, -1)))
+            if to_dev and mpc.pid:  # the data parties' outputs stay on the card
+                assert all(isinstance(v, torch.Tensor) and v.is_cuda for v in (*s, B))
+            return [PR.to_host(v) for v in (*s, B)]
+
+        return PS.run_parties(3, party)
+
+    host = run(False)
+    monkeypatch.setattr(PR.LElem256, "host", False)
+    on_card = run(True)
+    for pid in range(3):
+        for g, w in zip(on_card[pid], host[pid]):
+            assert np.array_equal(g, w), pid

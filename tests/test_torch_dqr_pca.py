@@ -26,6 +26,12 @@ from sfgwas_tpu_torch.gwas import utilities as PU
 from test_torch_assoc import assert_same_cts, ref_keys, run  # noqa: F401
 from test_torch_pca import NPC, NROWS, genotypes, pca_body
 
+from test_torch_householder_band import ref_householder_repaired  # noqa: F401
+
+# the port's Householder brings x to unit scale first (ROADMAP C): the JAX
+# package's runs with the same repair here
+pytestmark = pytest.mark.usefixtures("ref_householder_repaired")
+
 
 class _Calls:
     """Counts one module's net_dqr_enc calls."""

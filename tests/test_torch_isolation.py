@@ -17,7 +17,8 @@ from sfgwas_tpu_torch.crypto import ckks as PC
 from sfgwas_tpu_torch.crypto.params import get_params
 from sfgwas_tpu_torch.gwas import matmult as PMM
 from sfgwas_tpu_torch.mpc import mhe as PM
-from sfgwas_tpu_torch.ops import cuda_build, cuda_ntt
+from sfgwas_tpu_torch.ops import cuda_build, cuda_ntt, cuda_ring
+from sfgwas_tpu_torch.ops import ring as PR
 from sfgwas_tpu_torch.ops import rns
 
 PKG = Path(sfgwas_tpu_torch.__file__).parent
@@ -50,7 +51,7 @@ def test_import_pulls_in_no_jax():
               "mpc.ss_he", "utils.ddfloat", "crypto.basics", "gwas.qrfact", "gwas.assoc",
               "gwas.params", "gwas.filestream", "gwas.utilities", "gwas.qc", "gwas.pgen",
               "gwas.matmult", "gwas.protocol", "cli", "utils.config", "utils.watchdog",
-              "parallel.native_transport"):
+              "parallel.native_transport", "ops.cuda_ring"):
         assert "sfgwas_tpu_torch." + m in MODULES
 
 
@@ -154,6 +155,14 @@ def test_wrappers_take_plain_path_on_cpu():
     assert torch.equal(c[0], p[0]) and torch.equal(c[1], p[1])
     t = rns._crt_tables(basis, rows, (0, 1, 2), "cpu")
     assert torch.equal(rns.crt_lift(x[:, 0], t), rns.crt_lift_plain(x[:, 0], t))
+    # K8-K11 on CPU tensors
+    ring = PR.LElem256
+    a = torch.as_tensor(np.array(ring.rand(rng, (4, 3))))
+    assert torch.equal(cuda_ring.reduce(ring, a[0] * 7), cuda_ring.reduce_plain(ring, a[0] * 7))
+    assert torch.equal(cuda_ring.mul(ring, a[0], a[1]), cuda_ring.mul_plain(ring, a[0], a[1]))
+    assert torch.equal(cuda_ring.matmul(ring, a[:2], a[1:]), cuda_ring.matmul_plain(ring, a[:2], a[1:]))
+    assert torch.equal(cuda_ring.dot(ring, a, a[0]), cuda_ring.dot_plain(ring, a, a[0]))
     assert {k: v.launches for k, v in cuda_build.REGISTRY.items()} == before
     assert set(cuda_build.REGISTRY) == {"ntt_fwd", "ntt_inv", "ks_digit_product", "mac_dense",
-                                        "uniform_mod", "bs_mask", "bs_combine", "crt_lift"}
+                                        "uniform_mod", "bs_mask", "bs_combine", "crt_lift",
+                                        "ring_reduce", "ring_mul", "ring_matmul", "ring_dot"}

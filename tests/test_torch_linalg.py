@@ -10,8 +10,15 @@ hold the reference: eigenvalues within 3e-2 of numpy's eigh, V V^T = I and
 A v = lambda v within 5e-2, the factorisations within 2e-2."""
 
 import numpy as np
+import pytest
 
 from test_torch_mpc import _both, fxp, tofloat
+
+from test_torch_householder_band import ref_householder_repaired  # noqa: F401
+
+# the port's Householder brings x to unit scale first (ROADMAP C): the JAX
+# package's runs with the same repair here
+pytestmark = pytest.mark.usefixtures("ref_householder_repaired")
 
 
 def _sym(n: int, seed: int) -> np.ndarray:

@@ -21,6 +21,12 @@ import pytest
 
 from test_torch_mpc import _both, fxp, tofloat
 
+from test_torch_householder_band import ref_householder_repaired  # noqa: F401
+
+# the port's Householder brings x to unit scale first (ROADMAP C): the JAX
+# package's runs with the same repair here
+pytestmark = pytest.mark.usefixtures("ref_householder_repaired")
+
 
 def _shares(mpc, M, a):
     return M.S.make_shares(mpc, [fxp(v) for v in np.asarray(a).reshape(-1)])

@@ -4,9 +4,16 @@ matrix_inverse_svd, as tests/test_torch_linalg_inv.py holds them at 3 x 3:
 bit-equal shares at every party, the revealed inverses within 5e-2."""
 
 import numpy as np
+import pytest
 
 from test_torch_linalg_inv import _floats, _reveal, _shares, _sym_pd
 from test_torch_mpc import _both
+
+from test_torch_householder_band import ref_householder_repaired  # noqa: F401
+
+# the port's Householder brings x to unit scale first (ROADMAP C): the JAX
+# package's runs with the same repair here
+pytestmark = pytest.mark.usefixtures("ref_householder_repaired")
 
 
 def test_matrix_inverse_sym_pos_6x6():

@@ -48,6 +48,12 @@ from test_torch_assoc import (  # noqa: F401
     NROWS, PORT, PRESET, REF, _seeded, assert_same_cts, flat, ref_keys, run,
 )
 
+from test_torch_householder_band import ref_householder_repaired  # noqa: F401
+
+# the port's Householder brings x to unit scale first (ROADMAP C): the JAX
+# package's runs with the same repair here
+pytestmark = pytest.mark.usefixtures("ref_householder_repaired")
+
 NCOV = 2  # covariates; the ones column makes 3
 APPROX = (-6.0, 6.0, 15)  # tests/test_e2e_gwas.py:77-82
 EPOCHS = 2

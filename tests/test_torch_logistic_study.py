@@ -38,6 +38,12 @@ from test_e2e_gwas import make_logistic_data, oracle_logistic_score
 from test_torch_protocol import _Counter, read_run, run_cli, write_config
 from test_torch_protocol_ref import run_reference
 
+from test_torch_householder_band import ref_householder_repaired  # noqa: F401
+
+# the port's Householder brings x to unit scale first (ROADMAP C): the JAX
+# package's runs with the same repair here
+pytestmark = pytest.mark.usefixtures("ref_householder_repaired")
+
 LOGISTIC = dict(use_logistic=True, epochs=3, degree=15, A=-6.0, B=6.0, use_cached_keys=True)
 SAME_TOL, MIN_CORR = 1e-6, 0.95
 

@@ -30,6 +30,12 @@ from sfgwas_tpu_torch.gwas import pca as PP
 from sfgwas_tpu_torch.gwas import utilities as PU
 from test_torch_assoc import ref_keys, run, assert_same_cts, flat  # noqa: F401
 
+from test_torch_householder_band import ref_householder_repaired  # noqa: F401
+
+# the port's Householder brings x to unit scale first (ROADMAP C): the JAX
+# package's runs with the same repair here
+pytestmark = pytest.mark.usefixtures("ref_householder_repaired")
+
 # n m = 2800 keeps the Gram unscaled (gram_scale 1 at kp 4), as the JAX package runs it
 NROWS = [0, 12, 8]
 NSNP = 140
