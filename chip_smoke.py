@@ -368,6 +368,8 @@ DEVICE_NAMES = {
     "uniform_mod": r"uniform_mod_kernel", "bs_mask": r"bs_mask(_generic)?_kernel",
     "bs_combine": r"bs_combine_kernel", "crt_lift": r"crt_lift_kernel",
     "ring_reduce": r"ring_reduce_kernel", "ring_mul": r"ring_mul_kernel",
+    "ring_combine": r"ring_combine_kernel", "ring_sum": r"ring_sum_kernel",
+    "ring_from_i32": r"ring_from_i32_kernel",
     "ring_matmul": r"ring_matmul_kernel", "ring_dot": r"ring_dot_kernel",
 }
 # integer operations per second: the card's 67 TFLOP/s float32 rate outside
@@ -1311,8 +1313,7 @@ def _sqrt_host_profile(fn):
 
     timer = _HostTimer(threading.get_ident())
     for owner, attr, cat in (
-        (cuda_ring, "reduce", "ring_kernel_calls"), (cuda_ring, "mul", "ring_kernel_calls"),
-        (cuda_ring, "matmul", "ring_kernel_calls"), (cuda_ring, "dot", "ring_kernel_calls"),
+        *((cuda_ring, attr, "ring_kernel_calls") for attr in RING_KERNELS),
         (MPC, "reveal_sym", "reveals"),
         (MPC, "beaver_partition", "beaver_partitions"),
         (MPC, "beaver_partition_many", "beaver_partitions"),
@@ -1563,48 +1564,94 @@ def ss_phase(torch, seed: int, out_dir: str, kernels: list):
 
 
 # ---------------------------------------------------------------------------
-# 16. the SS domain's device mode (K8-K11)
+# 16. the SS domain's device mode (K8 and its fused entries, K9-K11)
 
 # each ring wrapper of ops/cuda_ring.py: its kernel and the reference's
-# device program it replaces
+# device program it replaces (K8's fused entries: every program they stand
+# for under "replaces_all")
 RING_KERNELS = {
     "reduce": ("ring_reduce", "sfgwas_tpu/ops/ring.py:389"),
+    "combine": ("ring_combine", "sfgwas_tpu/ops/ring.py:475"),
+    "sum_axis": ("ring_sum", "sfgwas_tpu/ops/ring.py:671"),
+    "from_i32": ("ring_from_i32", "sfgwas_tpu/ops/ring.py:285"),
     "mul": ("ring_mul", "sfgwas_tpu/ops/ring.py:522"),
     "matmul": ("ring_matmul", "sfgwas_tpu/ops/ring.py:590"),
     "dot": ("ring_dot", "sfgwas_tpu/ops/ring.py:653"),
 }
-SS_DEVICE_PATH = tuple(k for k, _ in RING_KERNELS.values())
-RING_TIMED_SHAPES = 1  # timed shapes a kernel (its most work); the rest only compared
+RING_REPLACES_ALL = {
+    "combine": ["sfgwas_tpu/ops/ring.py:475 _add_dev", "sfgwas_tpu/ops/ring.py:488 _sub_dev",
+                "sfgwas_tpu/ops/ring.py:507 _neg_dev",
+                "sfgwas_tpu/ops/ring.py:555 mul_int's reduce of a * v"],
+    "sum_axis": ["sfgwas_tpu/ops/ring.py:671 _sum_dev"],
+    "from_i32": ["sfgwas_tpu/ops/ring.py:285-290 from_i32's device branch"],
+}
+# the kernels phase 16's replays launch; K8's digit entry (reduce) and its
+# from_i32 entry have no caller there (every add, sub, neg, small mul_int
+# and sum is a fused entry's launch; from_i32 runs on host arrays in both
+# packages), so they are held to their plain versions and timed at the
+# path's shapes apart, off the path
+SS_DEVICE_PATH = ("ring_combine", "ring_sum", "ring_mul", "ring_matmul", "ring_dot")
+# timed shapes a kernel: its most work and its most launches; the rest only compared
+RING_TIMED_SHAPES = 2
 
 
 def _ring_key(name):
     def key(ring, *xs):
-        return (ring.name,) + tuple(tuple(x.shape) for x in xs)
+        return (ring.name,) + tuple(tuple(x.shape) if hasattr(x, "shape") else x for x in xs)
 
     return key
 
 
+def _rows_of(shape) -> int:
+    return int(np.prod(shape[:-1])) if shape else 0
+
+
 def _ring_work(name: str, key) -> tuple:
     """(bytes, operations) of one launch at a recorded key: each input read
-    once, each output written once; a 32 x 32 -> 64-bit word product counts
-    as two operations (a multiply-add), W^2 of them a product of W-word
-    elements; K8 one operation a digit in and out."""
-    ring_name, *shapes = key
+    once (an operand broadcast in place: its own rows once), each output
+    written once; a 32 x 32 -> 64-bit word product counts as two operations
+    (a multiply-add), W^2 of them a product of W-word elements; K8 and its
+    entries one operation a digit in and out."""
+    ring_name, *args = key
     L = 32 if ring_name in ("LElem256", "LElem2N256") else 16
     W = L // 4
     if name == "reduce":
-        (xs,) = shapes
+        (xs,) = args
         n = int(np.prod(xs[:-1]))
         return 4 * n * (xs[-1] + L), n * (xs[-1] + L)
-    if name == "mul":
+    if name in ("combine", "mul"):
+        shapes = [s for s in args[:2] if isinstance(s, tuple)]
         n = int(np.prod(np.broadcast_shapes(*[s[:-1] for s in shapes])))
-        return 4 * L * 3 * n, 2 * W * W * n
+        rows = sum(_rows_of(s) for s in shapes) + n
+        return 4 * L * rows, (L * rows if name == "combine" else 2 * W * W * n)
+    if name == "sum_axis":
+        shape, axis = args
+        rows = _rows_of(shape)
+        n = rows // shape[axis]
+        return 4 * L * (rows + n), L * (rows + n)
+    if name == "from_i32":
+        (shape,) = args
+        n = int(np.prod(shape))
+        return 4 * n * (1 + L), n * (1 + L)
     if name == "matmul":
-        (r, k, _), (_, c, _) = shapes
+        (r, k, _), (_, c, _) = args
         return 4 * L * (r * k + k * c + r * c), 2 * W * W * r * k * c
-    (a, cf) = shapes
+    (a, cf) = args
     n, k = int(np.prod(a[:-2])), cf[0]
     return 4 * L * (n * k + k + n), 2 * W * W * n * k
+
+
+def _timed_keys(counts: dict, name: str, keys) -> list:
+    """The keys of one ring kernel that phase 16 times: its shape of most
+    work (launches x bytes), then its shape of most launches, to
+    RING_TIMED_SHAPES."""
+    by_work = sorted(keys, key=lambda k: counts[(name, k)] * _ring_work(name, k)[0], reverse=True)
+    by_launches = sorted(keys, key=lambda k: counts[(name, k)], reverse=True)
+    out: list = []
+    for k in by_work[:1] + by_launches[:1]:
+        if k not in out and len(out) < RING_TIMED_SHAPES:
+            out.append(k)
+    return out
 
 
 class _FirstCalls(_Patches):
@@ -1647,11 +1694,13 @@ class _FirstCalls(_Patches):
         self.patch(owner, attr, make)
 
 
-def _device_trace(torch, fn):
+def _device_trace(torch, fn) -> tuple:
     """fn() with the device's work traced by torch.profiler, device
     activity alone (the host's calls are not recorded, so fn's wall time
-    stays close to its own): (fn's result, wall seconds, the device's busy
-    ms, its idle share of the wall time, device ms by name, the largest)."""
+    stays close to its own): (fn's result, a record: fn's seconds to the
+    device's end, the device's busy ms, its idle share of that time, its
+    events and kernels (the events that are no copy or fill), device ms by
+    name, the largest)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1660,11 +1709,15 @@ def _device_trace(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    summary = trace_summary(_trace_rows(torch, prof))
+    rows = _trace_rows(torch, prof)
+    summary = trace_summary(rows)
     if not summary["kernels"]:
         raise AssertionError("torch.profiler traced no device work")
     busy = summary["device_busy_ms"]
-    return out, wall, busy, 1 - busy / (wall * 1e3), summary["top_ms"][:10]
+    kernels = sum(1 for r in rows if r[1] and not r[0].startswith(("Memcpy", "Memset")))
+    return out, {"run_s": wall, "device_busy_ms": busy, "idle_share": 1 - busy / (wall * 1e3),
+                 "device_events": summary["kernels"], "device_kernels": kernels,
+                 "device_top_ms": summary["top_ms"][:10]}
 
 
 def ss_device_replay(torch, snaps: dict, call, device, trace: bool = False) -> dict:
@@ -1672,8 +1725,10 @@ def ss_device_replay(torch, snaps: dict, call, device, trace: bool = False) -> d
     parameters) a call that _FirstCalls kept, in device mode: LElem256's
     `host` False, each party's input a tensor on `device`, its PRG table
     the kept one.  Party 1's call is timed under a host profile (and, with
-    trace, its device work traced).  Returns each party's outputs on the
-    host, whether they equal the kept ones, and party 1's record."""
+    trace, the device's work during it traced: every party's).  Returns each
+    party's outputs on the host, whether they equal the kept ones, and party
+    1's record (with trace, its seconds are the call's to the device's end,
+    and trace_s those spent reading the trace after it)."""
     from sfgwas_tpu_torch.ops import ring as R
     from sfgwas_tpu_torch.parallel.simulate import run_parties
 
@@ -1693,9 +1748,9 @@ def ss_device_replay(torch, snaps: dict, call, device, trace: bool = False) -> d
         gate.wait(timeout=900)
         t0 = time.perf_counter()
         if mpc.pid == 1 and trace and cuda:
-            (res, out["host_profile"]), _, busy, idle, top = _device_trace(
+            (res, out["host_profile"]), traced = _device_trace(
                 torch, lambda: _sqrt_host_profile(run))
-            out.update(device_busy_ms=busy, idle_share=idle, device_top_ms=top)
+            out.update(traced)
         elif mpc.pid == 1:
             res, out["host_profile"] = _sqrt_host_profile(run)
         else:
@@ -1703,6 +1758,8 @@ def ss_device_replay(torch, snaps: dict, call, device, trace: bool = False) -> d
         if cuda:
             torch.cuda.synchronize()
         out["s"] = time.perf_counter() - t0
+        if "run_s" in out:  # the call's own seconds; the rest read the trace
+            out["s"], out["trace_s"] = out["run_s"], out["s"] - out["run_s"]
         res = res if isinstance(res, tuple) else (res,)
         out["tensors"] = [isinstance(v, torch.Tensor) and v.device.type == dev_type
                           for v in res]
@@ -1721,8 +1778,11 @@ def ss_device_replay(torch, snaps: dict, call, device, trace: bool = False) -> d
 def ss_device_runs(torch, sqrt_snaps: dict, inv_snaps: dict, device="cuda") -> dict:
     """Phase 16's replays in device mode, their launches counted (set to 0
     first) and recorded at the ring kernels' wrappers: (a) the square root
-    sqrt_snaps kept (traced on the card), (b) the inverse inv_snaps kept.
-    On the CPU (device="cpu") the plain versions run."""
+    sqrt_snaps kept, its device work traced on the card, (b) the inverse
+    inv_snaps kept, not traced (reading back the trace of its ~256,000
+    device events took 19-25 s on an H100's host).  On the CPU
+    (device="cpu") the plain versions run.  Also returns the operands copied
+    out before a launch (cuda_ring.OPERAND_COPIES over the replays)."""
     from sfgwas_tpu_torch.mpc import linalg as LA
     from sfgwas_tpu_torch.mpc.mpc import MPC
     from sfgwas_tpu_torch.ops import cuda_build, cuda_ring
@@ -1731,6 +1791,7 @@ def ss_device_runs(torch, sqrt_snaps: dict, inv_snaps: dict, device="cuda") -> d
     for attr in RING_KERNELS:
         rec.wrap(cuda_ring, attr, attr, _ring_key(attr))
     cuda_build.reset_launch_counts()
+    copies = cuda_ring.OPERAND_COPIES
     try:
         runs = {"sqrt": ss_device_replay(torch, sqrt_snaps, MPC.sqrt_and_sqrt_inverse, device,
                                          trace=True),
@@ -1738,8 +1799,69 @@ def ss_device_runs(torch, sqrt_snaps: dict, inv_snaps: dict, device="cuda") -> d
                                             device)}
     finally:
         rec.restore()
-    launches = {k: cuda_build.REGISTRY[k].launches for k in SS_DEVICE_PATH}
-    return {"runs": runs, "launches": launches, "rec": rec}
+    launches = {sym: cuda_build.REGISTRY[sym].launches for sym, _ in RING_KERNELS.values()}
+    return {"runs": runs, "launches": launches, "rec": rec,
+            "operand_copies": cuda_ring.OPERAND_COPIES - copies}
+
+
+def _device_total_ms(torch, fn, reps: int) -> tuple:
+    """(device ms per call of fn, device events per call): every device
+    event's duration in a torch.profiler trace of reps calls, after one; a
+    trace with no device event is taken again with more calls, as
+    _device_ms does, and after PROFILE_TRIES such traces both are None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        calls = reps * attempt
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        ev = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if ev:
+            return sum(e.end_ns() - e.start_ns() for e in ev) / calls / 1e6, len(ev) / calls
+        print(f"chip_smoke: torch.profiler traced no device event in try {attempt} of "
+              f"{PROFILE_TRIES}: {calls} calls", file=sys.stderr, flush=True)
+    return None, None
+
+
+def _ring_pairs(torch, cuda_ring):
+    """Each K8 entry's launches on the card before it was fused (the
+    torch expression ops/ring.py ran, then K8 on its int32 digits), from
+    the entry's arguments."""
+    def combine(ring, a, b, sa, sb):
+        if b is None:
+            x = -a if sa == -1 else a * sa  # neg, mul_int
+        elif sa == 1 and sb in (1, -1):
+            x = a + b if sb == 1 else a - b  # add, sub
+        else:
+            x = a * sa + b * sb
+        return cuda_ring.reduce(ring, x)
+
+    def sum_axis(ring, a, axis):
+        return cuda_ring.reduce(ring, torch.sum(a, dim=axis, dtype=torch.int32))
+
+    def from_i32(ring, v):
+        v = v.to(torch.int32)
+        x = torch.stack([(v >> (8 * i)) & 0xFF for i in range(4)], dim=-1)
+        return cuda_ring.reduce(ring, torch.nn.functional.pad(x, (0, ring.nlimb - 4)))
+
+    return {"combine": combine, "sum_axis": sum_axis, "from_i32": from_i32}
+
+
+def _ring_record_extras(torch, record, name, args, pair, reps):
+    """A K8 entry's record: the programs it stands for, and the device ms,
+    kernels and call ms of its unfused launch pair on the same inputs."""
+    record["replaces_all"] = RING_REPLACES_ALL[name]
+    if record.get("ms") is not None:
+        pms, pk = _device_total_ms(torch, lambda: pair(*args), reps)
+        record.update(pair_ms=pms, pair_kernels=pk,
+                      pair_call_ms=_time_ms(torch, lambda: pair(*args), reps))
 
 
 def ss_device_phase(torch, sqrt_snaps: dict, inv_snaps: dict, kernels: list) -> dict:
@@ -1747,14 +1869,19 @@ def ss_device_phase(torch, sqrt_snaps: dict, inv_snaps: dict, kernels: list) -> 
     (a) phase 7's sqrt_and_sqrt_inverse over its n = 99,337 shares and (b)
     phase 13's first matrix_inverse_sqrt_svd (the 6 x 6 inverse of the
     first Newton epoch's near-scalar Z^T W Z), each replayed at three
-    parties in device mode (the shares on the card, K8-K11 launched by the
-    ring) from the PRG tables and inputs those phases started it from, and
-    bit-equal to their host-mode outputs at every party; party 1 timed
-    under a host profile against its host-mode seconds, (a)'s device work
-    traced (busy and idle share); the launch counts set to 0 before the
-    replays and read after them; then (c) K8-K11 against their plain
-    versions at every shape the replays launched them with (each timed at
-    its shape of the most work).  Appends the timed records to `kernels`."""
+    parties in device mode (the shares on the card, K8's entries and
+    K9-K11 launched by the ring) from the PRG tables and inputs those
+    phases started it from, and bit-equal to their host-mode outputs at
+    every party; party 1 timed under a host profile against its host-mode
+    seconds, (a)'s device work traced (busy and idle share, its device
+    events and kernels); the launch counts set to 0 before the
+    replays and read after them; then (c) every kernel against its plain
+    version at every shape the replays launched it with (each timed at its
+    shape of the most work and of the most launches; a K8 entry beside its
+    unfused launch pair), and (d) the entries the replays do not launch,
+    K8's digit entry and from_i32, held to their plain versions and timed
+    at the path's shapes.  Appends the timed records of the path's kernels
+    to `kernels`."""
     global TIMING
     from sfgwas_tpu_torch.ops import cuda_ring
 
@@ -1762,14 +1889,16 @@ def ss_device_phase(torch, sqrt_snaps: dict, inv_snaps: dict, kernels: list) -> 
     res = ss_device_runs(torch, sqrt_snaps, inv_snaps)
     runs, launches, rec = res["runs"], res["launches"], res["rec"]
     line = {"sqrt_n": int(sqrt_snaps[1]["x"].shape[0]),
-            "inverse_shape": list(inv_snaps[1]["x"].shape[:2]), "launches": launches}
+            "inverse_shape": list(inv_snaps[1]["x"].shape[:2]), "launches": launches,
+            "operand_copies": res["operand_copies"]}
     for name, snaps in (("sqrt", sqrt_snaps), ("inverse", inv_snaps)):
         r = runs[name]
         line[name] = {"host_mode_s_party1": snaps[1]["s"], "device_mode_s_party1": r[1]["s"],
                       "bit_equal": {pid: r[pid]["equal"] for pid in range(3)},
                       "device_tensors": {pid: r[pid]["tensors"] for pid in (1, 2)},
                       "device_mode_host_profile_party1": r[1]["host_profile"]}
-        for k in ("device_busy_ms", "idle_share", "device_top_ms"):
+        for k in ("trace_s", "device_busy_ms", "idle_share", "device_events", "device_kernels",
+                  "device_top_ms"):
             if k in r[1]:
                 line[name][k] = r[1][k]
     _say(f"ss device phase: {json.dumps(line)}")
@@ -1787,30 +1916,58 @@ def ss_device_phase(torch, sqrt_snaps: dict, inv_snaps: dict, kernels: list) -> 
                 for name in RING_KERNELS}
     if recorded != launches:
         raise AssertionError(f"ring launches {launches}, recorded at the wrappers {recorded}")
-    plain = {"reduce": cuda_ring.reduce_plain, "mul": cuda_ring.mul_plain,
-             "matmul": cuda_ring.matmul_plain, "dot": cuda_ring.dot_plain}
+    plain = {"reduce": cuda_ring.reduce_plain, "combine": cuda_ring.combine_plain,
+             "sum_axis": cuda_ring.sum_plain, "from_i32": cuda_ring.from_i32_plain,
+             "mul": cuda_ring.mul_plain, "matmul": cuda_ring.matmul_plain,
+             "dot": cuda_ring.dot_plain}
+    pairs = _ring_pairs(torch, cuda_ring)
     compared: list = []
-    for name, found in rec.args.items():
+
+    def check(target, name, key, a, reps):
         sym, replaces = RING_KERNELS[name]
+        nbytes, ops = _ring_work(name, key)
+        _check(torch, target, f"{sym} {list(key)}", sym, "sfgwas_tpu_torch/csrc/ring.cu",
+               replaces, list(key), lambda: [real(*a)], lambda: [plain[name](*a)], reps, 1,
+               nbytes, ops)
+        if name in pairs:
+            _ring_record_extras(torch, target[-1], name, a, pairs[name], reps)
+
+    for name, found in rec.args.items():
         real = rec.real[name]
-        order = sorted(found, key=lambda k: rec.counts[(name, k)] * _ring_work(name, k)[0],
-                       reverse=True)
-        for i, key in enumerate(order):
-            a = found[key]
-            nbytes, ops = _ring_work(name, key)
-            TIMING = i < RING_TIMED_SHAPES
-            target = kernels if TIMING else compared
+        timed = _timed_keys(rec.counts, name, found)
+        for key in sorted(found, key=lambda k: k not in timed):
+            nbytes, _ = _ring_work(name, key)
+            TIMING = key in timed
             try:
-                _check(torch, target, f"{sym} {list(key)}", sym, "sfgwas_tpu_torch/csrc/ring.cu",
-                       replaces, list(key), lambda: [real(*a)], lambda: [plain[name](*a)],
-                       max(5, min(100, int(2e8 // (nbytes + 1)))), 1, nbytes, ops)
+                check(kernels if TIMING else compared, name, key, found[key],
+                      max(5, min(100, int(2e8 // (nbytes + 1)))))
             finally:
                 TIMING = True
-            target[-1].update(launches=launches[sym], path="ss_device",
-                              launches_at_shape=rec.counts[(name, key)])
+            (kernels if key in timed else compared)[-1].update(
+                launches=launches[RING_KERNELS[name][0]], path="ss_device",
+                launches_at_shape=rec.counts[(name, key)])
+    # (d) the entries off the path, at the path's shapes: K8 on [2n, L]
+    # digits in [0, 510] (an add's unfused intermediate at the square root's
+    # stacked g and h), from_i32 on the square root's n values
+    off_path: list = []
+    ring, n = sqrt_snaps[1]["mpc"]["ring"], line["sqrt_n"]
+    gen = np.random.default_rng(16)
+    digits = torch.as_tensor(gen.integers(0, 511, size=(2 * n, ring.nlimb)).astype(np.int32),
+                             device="cuda")
+    v = torch.as_tensor(gen.integers(-(2**31), 2**31 - 1, size=n).astype(np.int32),
+                        device="cuda")
+    for name, args in (("reduce", (ring, digits)), ("from_i32", (ring, v))):
+        real = rec.real[name]
+        check(off_path, name, _ring_key(name)(*args), args, 100)
+        off_path[-1].update(launches=launches[RING_KERNELS[name][0]], path="ss_device",
+                            on_path=False)
     del rec
     line.update(compared_without_timing=_equal_only(compared, "ss_device"),
-                phase_s=time.time() - t_phase)
+                off_path=off_path, phase_s=time.time() - t_phase)
+    bad = [k["name"] for k in off_path if not k["bit_equal"]]
+    if bad:
+        raise AssertionError(f"kernels differ from their plain versions: {bad}")
+    _say(f"ss device off the path: {json.dumps(off_path)}")
     return line
 
 

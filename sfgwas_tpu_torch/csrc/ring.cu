@@ -3,36 +3,52 @@
 //
 // Replaces sfgwas_tpu/ops/ring.py's jitted device programs (XLA, no Pallas
 // kernel): K8 ring_reduce _reduce_dev (:389, with _exact_carry :368 and
-// _cond_sub_p :435), which add, sub, neg, mul_int, sum and from_i32 end in;
-// K9 ring_mul _mul_dev (:522); K10 ring_matmul _matmul_dev (:590); K11
-// ring_dot _dot_coeffs_dev (:653).
+// _cond_sub_p :435), and K8's fused entries, each one program there and one
+// launch here: ring_combine _add_dev (:475), _sub_dev (:488), _neg_dev
+// (:507) and mul_int's small-constant reduce (:555), ring_sum _sum_dev
+// (:671), ring_from_i32 from_i32's device branch (:285-290); K9 ring_mul
+// _mul_dev (:522, and _mul_const_dev :546 through it); K10 ring_matmul
+// _matmul_dev (:590); K11 ring_dot _dot_coeffs_dev (:653).
 //
 // What they compute.  An element is L = 32 (p256, 2^256) or 16 (p127,
 // 2^127) int32 digits, little-endian base 2^8.  K8 takes any signed digit
 // array [n, nd], nd <= 2L - 1, and writes the canonical digits of its value
-// modulo the ring's modulus; K9 the elementwise product of canonical
-// arrays [n, L]; K10 [r, k, L] x [k, c, L] -> [r, c, L] for any k; K11
+// modulo the ring's modulus; its entries the canonical sa a + sb b of
+// canonical rows (|sa|, |sb| < 2^9; add, sub, neg, small mul_int), the sum
+// of k canonical rows, the digits of an int32; K9 the elementwise product of
+// canonical rows; K10 [r, k, L] x [k, c, L] -> [r, c, L] for any k; K11
 // sum_k a[i, k] * coeffs[k] over [n, k, L] and [k, L].  A canonical value
 // has one digit form, so each is bit-equal to the JAX function wherever
 // that is exact (its int32 carries do not overflow).
 //
-// The design.  One thread an output element.  Four digits make one 32-bit
-// word, so a canonical row is L/4 words read with L/16 16-byte loads.  A
-// product is a schoolbook over the words with 32x32->64 multiply-adds and
-// 64-bit carries (K9: 2W words; K10 and K11 add every term's 2W words into
-// a 2W + 1 word sum, exact for up to 2^32 terms, so k needs no chunks).
-// Every result is brought to canonical form once, by canon(): carry the
-// signed words, fold the words at and above 2^(32W) back with 2^(32W) =
-// 189 (p256) or 2 (p127) mod p until none is left, subtract p while the
-// value is at least p; the power-of-two rings drop those words and mask
-// the top word.
+// The arithmetic.  One thread an output element.  Four digits make one
+// 32-bit word.  A product is a schoolbook over the words with 32x32->64
+// multiply-adds and 64-bit carries (K9: 2W words; K10 and K11 add every
+// term's 2W words into a 2W + 1 word sum, exact for up to 2^32 terms, so k
+// needs no chunks).  Every result is brought to canonical form once, by
+// canon(): carry the signed words, fold the words at and above 2^(32W) back
+// with 2^(32W) = 189 (p256) or 2 (p127) mod p until none is left, subtract
+// p while the value is at least p; the power-of-two rings drop those words
+// and mask the top word.
 //
 // What bounds them on the H100.  K8 and K9 move 4 bytes a digit and do
-// little work (K9: W^2 = 64 word products a p256 element): bytes.  K10 and
-// K11 do W^2 word products a term; at the SS protocol's shapes (6 x 6
-// matrices, the normaliser's k = 37 terms a value) they are small, and the
-// launch dominates.  This is the simple kernel first: no shared memory, no
-// tensor cores.
+// little work (K9: W^2 = 64 word products a p256 element): bytes.  A row is
+// 128 bytes (64 at p127), so one thread reading or writing its own row
+// leaves a warp's lanes a row apart, 32 cache lines an access.  K8 and K9
+// therefore stage a block's rows in shared memory: coalesced loads (16-byte
+// chunks, consecutive lanes on consecutive chunks; cp.async for K8) into a
+// tile whose rows a thread reads without bank conflicts (an odd row stride,
+// or the XOR swizzle swz()), and coalesced 16-byte stores out of a swizzled
+// tile.  K8's entries do their elementwise step (the signed combination, the
+// k-term sum in 64 bits, the int32's digits) inside the launch, so no
+// intermediate goes to device memory.  An operand broadcast or transposed
+// (a constant row, [c, 1, L] against [c, n, L], a matrix's transpose) is
+// read in place from its axes' sizes and strides (Rows).  K10 and K11 do
+// W^2 word products a term; at the SS protocol's shapes (6 x 6 matrices, the
+// normaliser's k = 37 terms a value) they are small, the launch dominates,
+// and they stay the simple kernel: no shared memory, no tensor cores.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -171,46 +187,309 @@ __device__ __forceinline__ void canon_acc(const uint32_t (&acc)[2 * RingDef<RING
     store_digits<W>(out, o);
 }
 
-// K8: signed digits [n, nd] (nd <= 2L - 1) -> canonical [n, L]
+// ---- K8 and K9's staged tiles
+//
+// A block's THREADS elements are THREADS consecutive output rows.  Their
+// inputs reach shared memory with coalesced loads (consecutive threads on
+// consecutive 16-byte chunks, or cp.async), each thread then works on its
+// own row there, and the block's output rows leave through shared memory as
+// coalesced 16-byte stores.
+
+// a word tile: THREADS rows of W 32-bit words, word w of row r at
+// r W + (w ^ f(r)), f(r) = (r / (32 / W)) mod W.  A thread reading its own
+// row a word at a time and a warp reading 32 consecutive words each touch 32
+// distinct banks.
+template <int W>
+__device__ __forceinline__ int swz(int r, int w) {
+    return r * W + (w ^ ((r / (32 / W)) & (W - 1)));
+}
+
+// the same for 64-bit words, 16 to a conflict-free half-warp access
+template <int W>
+__device__ __forceinline__ int swz64(int r, int w) {
+    return r * W + (w ^ ((r / (16 / W)) & (W - 1)));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+// the 32-bit word of the 4 canonical digits at p (16-byte aligned when vec)
+__device__ __forceinline__ uint32_t word_at(const int* __restrict__ p, const bool vec) {
+    const int4 d = vec ? __ldg(reinterpret_cast<const int4*>(p))
+                       : make_int4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+    return (uint32_t)d.x | ((uint32_t)d.y << 8) | ((uint32_t)d.z << 16) | ((uint32_t)d.w << 24);
+}
+
+// where an operand read in place keeps its rows: output element e, over
+// the output's batch axes, is (i_0, .., i_{nd-1}) over `size` (innermost
+// last), and its row starts at sum_d i_d stride[d] int32s.  A broadcast axis
+// has stride 0, a transposed one its own; nd <= MAXD after the wrapper has
+// merged the axes it can.
+constexpr int MAXD = 4;
+struct Rows {
+    long long size[MAXD], stride[MAXD];
+    int nd;
+};
+
+// the row offset of element e: the axes are indexed by constants only (a
+// loop to a runtime axis count with 64-bit division ran K9 1.5x slower on an
+// H100), and e < 2^31, as the launchers check, so the index is 32-bit
+__device__ __forceinline__ long long row_offset(const Rows& g, long long e) {
+    unsigned i = (unsigned)e;
+    long long off = 0;
+#pragma unroll
+    for (int d = MAXD - 1; d > 0; --d) {
+        if (d < g.nd) {
+            const unsigned size = (unsigned)g.size[d], q = i / size;
+            off += (long long)(i - q * size) * g.stride[d];
+            i = q;
+        }
+    }
+    return off + (long long)i * g.stride[0];
+}
+
+// the words of the block's rows (rows[r] the offset of row r) of a
+// canonical operand into a word tile; all loads issued before the stores
+template <int W>
+__device__ __forceinline__ void stage_words(uint32_t* tile, const int* __restrict__ src,
+                                            const long long* rows, const int nrows,
+                                            const bool vec) {
+    uint32_t v[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+        const int c = threadIdx.x + j * THREADS;
+        v[j] = c < nrows * W ? word_at(src + rows[c / W] + 4 * (c % W), vec) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+        const int c = threadIdx.x + j * THREADS;
+        if (c < nrows * W) tile[swz<W>(c / W, c % W)] = v[j];
+    }
+}
+
+// this thread's canonical words o (row threadIdx.x, where mine) into the
+// word tile, then the block's nrows rows to out (their first) as coalesced
+// 16-byte stores of 4 digits
+template <int W>
+__device__ __forceinline__ void store_rows(uint32_t* tile, const uint32_t (&o)[W],
+                                           const bool mine, const int nrows,
+                                           int* __restrict__ out) {
+    __syncthreads();  // every thread is done reading the tile
+    if (mine) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) tile[swz<W>(threadIdx.x, w)] = o[w];
+    }
+    __syncthreads();
+    int4* q = reinterpret_cast<int4*>(out);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+        const int c = threadIdx.x + j * THREADS;
+        if (c < nrows * W) {
+            const uint32_t v = tile[swz<W>(c / W, c % W)];
+            q[c] = make_int4(v & 0xff, (v >> 8) & 0xff, (v >> 16) & 0xff, v >> 24);
+        }
+    }
+}
+
+// K8: signed digits [n, nd] (nd <= 2L - 1) -> canonical [n, L].  The block's
+// run of THREADS nd digits is copied into a tile of odd row stride: in
+// 16-byte cp.async chunks read back 16 bytes at a time where nd % 4 == 0 and
+// the run is 16-byte aligned (vec), else digit by digit (4-byte cp.async).
 template <int RING>
 __global__ void __launch_bounds__(THREADS)
 ring_reduce_kernel(const int* __restrict__ xin, int* __restrict__ out, const long long n,
-                   const int nd) {
-    constexpr int W = RingDef<RING>::W;
-    const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (e >= n) return;
-    const int* row = xin + e * nd;
-    int64_t x[2 * W + 2];
-#pragma unroll
-    for (int w = 0; w < 2 * W + 2; ++w) {
-        int64_t v = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int d = 4 * w + j;
-            if (d < nd) v += (int64_t)__ldg(row + d) * ((int64_t)1 << (8 * j));
-        }
-        x[w] = v;
+                   const int nd, const bool vec) {
+    constexpr int W = RingDef<RING>::W, L = RingDef<RING>::L;
+    extern __shared__ int4 smem[];
+    int* tile = reinterpret_cast<int*>(smem);
+    const long long e0 = (long long)blockIdx.x * THREADS;
+    const int nrows = (int)min((long long)THREADS, n - e0), t = threadIdx.x;
+    const int* src = xin + e0 * nd;
+    // a row's units (chunks or digits) and the tile's odd row stride in units;
+    // r = c / q as umulhi(c, ceil(2^32 / q)), exact for c, q < 2^16
+    const int q = vec ? nd / 4 : nd, s = q | 1;
+    const uint32_t m = q == 1 ? 0u : (uint32_t)((0x100000000ull + q - 1) / q);
+    for (int c = t; c < nrows * q; c += THREADS) {
+        const int r = q == 1 ? c : (int)__umulhi((uint32_t)c, m), j = c - r * q;
+        if (vec)
+            cp_async16(smem + r * s + j, src + 4 * c);
+        else
+            cp_async4(tile + r * s + j, src + c);
     }
-    uint32_t o[W];
-    canon<RING>(x, o);
-    store_digits<W>(out + e * RingDef<RING>::L, o);
+    cp_async_wait_all();
+    __syncthreads();
+    const bool mine = t < nrows;
+    uint32_t o[W] = {};
+    if (mine) {
+        int64_t x[2 * W + 2];
+        if (vec) {
+#pragma unroll
+            for (int w = 0; w < 2 * W + 2; ++w) {
+                x[w] = 0;
+                if (4 * w < nd) {
+                    const int4 d = smem[t * s + w];
+                    x[w] = (int64_t)d.x + (int64_t)d.y * (1 << 8) + (int64_t)d.z * (1 << 16) +
+                           (int64_t)d.w * (1 << 24);
+                }
+            }
+        } else {
+#pragma unroll
+            for (int w = 0; w < 2 * W + 2; ++w) {
+                int64_t v = 0;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int d = 4 * w + j;
+                    if (d < nd) v += (int64_t)tile[t * s + d] * ((int64_t)1 << (8 * j));
+                }
+                x[w] = v;
+            }
+        }
+        canon<RING>(x, o);
+    }
+    store_rows<W>(reinterpret_cast<uint32_t*>(smem), o, mine, nrows, out + e0 * L);
 }
 
-// K9: canonical a, b [n, L] -> a * b [n, L]
+// K8's combine entry: canonical a, b (b may be null) -> canon(sa a + sb b),
+// |sa|, |sb| < 2^9; operand rows where ag, bg put them
+template <int RING>
+__global__ void __launch_bounds__(THREADS)
+ring_combine_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
+                    const long long n, const Rows ag, const Rows bg, const int sa, const int sb,
+                    const bool avec, const bool bvec) {
+    constexpr int W = RingDef<RING>::W, L = RingDef<RING>::L;
+    __shared__ uint32_t ta[THREADS * W], tb[THREADS * W];
+    __shared__ long long rows[2][THREADS];
+    const long long e0 = (long long)blockIdx.x * THREADS;
+    const int nrows = (int)min((long long)THREADS, n - e0), t = threadIdx.x;
+    const bool mine = t < nrows;
+    if (mine) {
+        rows[0][t] = row_offset(ag, e0 + t);
+        rows[1][t] = row_offset(bg, e0 + t);
+    }
+    __syncthreads();
+    stage_words<W>(ta, a, rows[0], nrows, avec);
+    if (b) stage_words<W>(tb, b, rows[1], nrows, bvec);
+    __syncthreads();
+    uint32_t o[W] = {};
+    if (mine) {
+        int64_t x[W + 1];
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+            x[w] = (int64_t)sa * ta[swz<W>(t, w)];
+            if (b) x[w] += (int64_t)sb * tb[swz<W>(t, w)];
+        }
+        x[W] = 0;
+        canon<RING>(x, o);
+    }
+    store_rows<W>(ta, o, mine, nrows, out + e0 * L);
+}
+
+// K8's sum entry: canonical a viewed as [outer, k, inner, L] -> the sums over
+// k, [outer, inner, L] (n = outer inner elements), k < 2^22: a thread adds
+// the same 16-byte chunks of every term in 64 bits, coalesced
+template <int RING>
+__global__ void __launch_bounds__(THREADS)
+ring_sum_kernel(const int* __restrict__ a, int* __restrict__ out, const long long n, const int k,
+                const long long inner, const bool vec) {
+    constexpr int W = RingDef<RING>::W, L = RingDef<RING>::L;
+    __shared__ int64_t ts[THREADS * W];
+    __shared__ long long base[THREADS];
+    const long long e0 = (long long)blockIdx.x * THREADS;
+    const int nrows = (int)min((long long)THREADS, n - e0), t = threadIdx.x;
+    const bool mine = t < nrows;
+    if (mine) {
+        const long long e = e0 + t, o = inner == 1 ? e : e / inner;
+        base[t] = (o * k * inner + (e - o * inner)) * L;
+    }
+    __syncthreads();
+    int64_t acc[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[j] = 0;
+    const long long step = inner * L;
+    for (int s = 0; s < k; ++s) {
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+            const int c = t + j * THREADS;
+            if (c < nrows * W) acc[j] += word_at(a + base[c / W] + s * step + 4 * (c % W), vec);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+        const int c = t + j * THREADS;
+        if (c < nrows * W) ts[swz64<W>(c / W, c % W)] = acc[j];
+    }
+    __syncthreads();
+    uint32_t o[W] = {};
+    if (mine) {
+        int64_t x[W + 1];
+#pragma unroll
+        for (int w = 0; w < W; ++w) x[w] = ts[swz64<W>(t, w)];
+        x[W] = 0;
+        canon<RING>(x, o);
+    }
+    store_rows<W>(reinterpret_cast<uint32_t*>(ts), o, mine, nrows, out + e0 * L);
+}
+
+// K8's from_i32 entry: int32 v [n] -> the canonical digits of v mod 2^32
+template <int RING>
+__global__ void __launch_bounds__(THREADS)
+ring_from_i32_kernel(const int* __restrict__ v, int* __restrict__ out, const long long n) {
+    constexpr int W = RingDef<RING>::W, L = RingDef<RING>::L;
+    __shared__ uint32_t tile[THREADS * W];
+    const long long e0 = (long long)blockIdx.x * THREADS;
+    const int nrows = (int)min((long long)THREADS, n - e0), t = threadIdx.x;
+    const bool mine = t < nrows;
+    uint32_t o[W] = {};
+    if (mine) {
+        int64_t x[W + 1];
+#pragma unroll
+        for (int w = 0; w <= W; ++w) x[w] = 0;
+        x[0] = (uint32_t)__ldg(v + e0 + t);
+        canon<RING>(x, o);
+    }
+    store_rows<W>(tile, o, mine, nrows, out + e0 * L);
+}
+
+// K9: canonical a, b -> a * b [n, L], operand rows where ag, bg put them
 template <int RING>
 __global__ void __launch_bounds__(THREADS)
 ring_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
-                const long long n) {
+                const long long n, const Rows ag, const Rows bg, const bool avec,
+                const bool bvec) {
     constexpr int W = RingDef<RING>::W, L = RingDef<RING>::L;
-    const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (e >= n) return;
-    uint32_t va[W], vb[W], acc[2 * W + 1];
-    load_words<W>(a + e * L, va);
-    load_words<W>(b + e * L, vb);
+    __shared__ uint32_t ta[THREADS * W], tb[THREADS * W];
+    __shared__ long long rows[2][THREADS];
+    const long long e0 = (long long)blockIdx.x * THREADS;
+    const int nrows = (int)min((long long)THREADS, n - e0), t = threadIdx.x;
+    const bool mine = t < nrows;
+    if (mine) {
+        rows[0][t] = row_offset(ag, e0 + t);
+        rows[1][t] = row_offset(bg, e0 + t);
+    }
+    __syncthreads();
+    stage_words<W>(ta, a, rows[0], nrows, avec);
+    stage_words<W>(tb, b, rows[1], nrows, bvec);
+    __syncthreads();
+    uint32_t o[W] = {};
+    if (mine) {
+        uint32_t va[W], vb[W], acc[2 * W + 1];
 #pragma unroll
-    for (int i = 0; i <= 2 * W; ++i) acc[i] = 0;
-    mul_acc<W>(acc, va, vb);
-    canon_acc<RING>(acc, out + e * L);
+        for (int w = 0; w < W; ++w) {
+            va[w] = ta[swz<W>(t, w)];
+            vb[w] = tb[swz<W>(t, w)];
+        }
+#pragma unroll
+        for (int i = 0; i <= 2 * W; ++i) acc[i] = 0;
+        mul_acc<W>(acc, va, vb);
+        int64_t x[2 * W + 2];
+#pragma unroll
+        for (int i = 0; i <= 2 * W; ++i) x[i] = acc[i];
+        x[2 * W + 1] = 0;
+        canon<RING>(x, o);
+    }
+    store_rows<W>(ta, o, mine, nrows, out + e0 * L);
 }
 
 // sum_t A[i, t] * B[t, j] over t < k: A rows of stride k*L, B rows of stride c*L
@@ -257,6 +536,27 @@ inline unsigned blocks(long long n) { return (unsigned)((n + THREADS - 1) / THRE
 
 bool aligned(const void* p) { return (uintptr_t)p % 16 == 0; }
 
+// an operand's Rows from {nd, size[0..nd), stride[0..nd)} (1 <= nd <= MAXD,
+// sizes in [1, 2^31), strides >= 0)
+bool rows_of(const long long* geom, Rows& g) {
+    if (!geom || geom[0] < 1 || geom[0] > MAXD) return false;
+    g.nd = (int)geom[0];
+    for (int d = 0; d < MAXD; ++d) {
+        g.size[d] = d < g.nd ? geom[1 + d] : 1;
+        g.stride[d] = d < g.nd ? geom[1 + g.nd + d] : 0;
+        if (g.size[d] < 1 || g.size[d] > 0x7fffffffll || g.stride[d] < 0) return false;
+    }
+    return true;
+}
+
+// an operand's rows can be read 16 bytes at a time: every row starts on a
+// 16-byte boundary
+bool vec_rows(const void* p, const Rows& g) {
+    bool ok = aligned(p);
+    for (int d = 0; d < g.nd; ++d) ok = ok && g.stride[d] % 4 == 0;
+    return ok;
+}
+
 }  // namespace
 
 #define RING_SWITCH(ring, CALL)                  \
@@ -272,26 +572,79 @@ extern "C" {
 
 const char* csrc_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// x [n, nd] int32 (any sign, 1 <= nd <= 2L - 1) -> out [n, L] canonical
+// x [n, nd] int32 (any sign, 1 <= nd <= 2L - 1), any contiguous view -> out
+// [n, L] canonical, 16-byte aligned
 int ring_reduce(int ring, const void* x, void* out, long long n, int nd, void* stream) {
     const int L = (ring == 0 || ring == 2) ? 32 : 16;
     if (n < 1 || nd < 1 || nd > 2 * L - 1 || n > 0x7fffffffll * THREADS || !aligned(out))
         return (int)cudaErrorInvalidValue;
+    const bool vec = nd % 4 == 0 && aligned(x);
+    const int s = (vec ? nd / 4 : nd) | 1;  // the tile's row stride in units
+    const int smem = std::max(THREADS * s * (vec ? 16 : 4), THREADS * L);
 #define CALL(R)                                                                        \
-    ring_reduce_kernel<R><<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(            \
-        (const int*)x, (int*)out, n, nd)
+    ring_reduce_kernel<R><<<blocks(n), THREADS, smem, (cudaStream_t)stream>>>(         \
+        (const int*)x, (int*)out, n, nd, vec)
     RING_SWITCH(ring, CALL)
 #undef CALL
     return (int)cudaGetLastError();
 }
 
-// a, b, out [n, L] int32, canonical, 16-byte aligned
-int ring_mul(int ring, const void* a, const void* b, void* out, long long n, void* stream) {
-    if (n < 1 || n > 0x7fffffffll * THREADS || !aligned(a) || !aligned(b) || !aligned(out))
+// a, b canonical int32 rows read in place where ageom, bgeom (rows_of)
+// put them; b may be null; out [n, L] 16-byte aligned, n < 2^31; |sa|,
+// |sb| < 2^9
+int ring_combine(int ring, const void* a, const long long* ageom, const void* b,
+                 const long long* bgeom, void* out, long long n, int sa, int sb, void* stream) {
+    Rows ag, bg;
+    if (n < 1 || n > 0x7fffffffll || !aligned(out) || !rows_of(ageom, ag) ||
+        (b && !rows_of(bgeom, bg)) || sa <= -512 || sa >= 512 || sb <= -512 || sb >= 512)
+        return (int)cudaErrorInvalidValue;
+    if (!b) bg = ag;
+#define CALL(R)                                                                        \
+    ring_combine_kernel<R><<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(           \
+        (const int*)a, (const int*)b, (int*)out, n, ag, bg, sa, sb, vec_rows(a, ag),     \
+        vec_rows(b, bg))
+    RING_SWITCH(ring, CALL)
+#undef CALL
+    return (int)cudaGetLastError();
+}
+
+// a canonical int32 [outer, k, inner, L], any contiguous view; out [outer,
+// inner, L] (n = outer inner) 16-byte aligned; 1 <= k < 2^22
+int ring_sum(int ring, const void* a, void* out, long long n, int k, long long inner,
+             void* stream) {
+    if (n < 1 || n > 0x7fffffffll * THREADS || k < 1 || k >= (1 << 22) || inner < 1 ||
+        n % inner != 0 || !aligned(out))
+        return (int)cudaErrorInvalidValue;
+#define CALL(R)                                                                        \
+    ring_sum_kernel<R><<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(               \
+        (const int*)a, (int*)out, n, k, inner, aligned(a))
+    RING_SWITCH(ring, CALL)
+#undef CALL
+    return (int)cudaGetLastError();
+}
+
+// v [n] int32 -> out [n, L] canonical (v mod 2^32), 16-byte aligned
+int ring_from_i32(int ring, const void* v, void* out, long long n, void* stream) {
+    if (n < 1 || n > 0x7fffffffll * THREADS || !aligned(out)) return (int)cudaErrorInvalidValue;
+#define CALL(R)                                                                        \
+    ring_from_i32_kernel<R><<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(          \
+        (const int*)v, (int*)out, n)
+    RING_SWITCH(ring, CALL)
+#undef CALL
+    return (int)cudaGetLastError();
+}
+
+// a, b canonical int32 rows read in place where ageom, bgeom (rows_of) put
+// them; out [n, L] 16-byte aligned, n < 2^31
+int ring_mul(int ring, const void* a, const long long* ageom, const void* b,
+             const long long* bgeom, void* out, long long n, void* stream) {
+    Rows ag, bg;
+    if (n < 1 || n > 0x7fffffffll || !aligned(out) || !rows_of(ageom, ag) ||
+        !rows_of(bgeom, bg))
         return (int)cudaErrorInvalidValue;
 #define CALL(R)                                                                        \
     ring_mul_kernel<R><<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(               \
-        (const int*)a, (const int*)b, (int*)out, n)
+        (const int*)a, (const int*)b, (int*)out, n, ag, bg, vec_rows(a, ag), vec_rows(b, bg))
     RING_SWITCH(ring, CALL)
 #undef CALL
     return (int)cudaGetLastError();

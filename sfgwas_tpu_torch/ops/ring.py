@@ -27,9 +27,10 @@ Every op has a host path (numpy, the native engine) and a device path
 (int32 torch tensors) with the same results.  Numpy inputs take the host
 path; tensors among the inputs take the device path, on their device
 (numpy operands are staged there as int32; tensors on two devices raise):
-the CUDA kernels K8-K11 of ops/cuda_ring.py for CUDA tensors, their plain
-torch versions for CPU tensors.  So a share given as a tensor selects
-where the work runs.  The SS protocol layer stays on the host by default
+the CUDA kernels K8-K11 of ops/cuda_ring.py for CUDA tensors (add, sub,
+neg, small mul_int, sum and from_i32 one launch each of K8's fused
+entries), their plain torch versions for CPU tensors.  So a share given
+as a tensor selects where the work runs.  The SS protocol layer stays on the host by default
 (Ring.host = True, as the reference's): its tensors are small and stepped
 in lockstep, one protocol round at a time, where a device dispatch per op
 costs more than the digit arithmetic.  A ring whose `host` is set to False
@@ -329,9 +330,7 @@ class Ring:
     def from_i32(self, vals):
         """int32 array of small nonneg values -> canonical digits."""
         if isinstance(vals, torch.Tensor):
-            v = vals.to(torch.int32)
-            x = torch.stack([(v >> (DIGIT_BITS * i)) & DIGIT_MASK for i in range(4)], dim=-1)
-            return cuda_ring.reduce(self, torch.nn.functional.pad(x, (0, self.nlimb - 4)))
+            return cuda_ring.from_i32(self, vals)
         v = np.asarray(vals, dtype=np.int64)
         x = np.stack([(v >> (DIGIT_BITS * i)) & DIGIT_MASK for i in range(4)], axis=-1)
         pad = [(0, 0)] * (x.ndim - 1) + [(0, self.nlimb - 4)]
@@ -439,7 +438,7 @@ class Ring:
     def add(self, a, b):
         d = _dev(a, b)
         if d is not None:
-            return cuda_ring.reduce(self, to_device(a, d) + to_device(b, d))
+            return cuda_ring.combine(self, to_device(a, d), to_device(b, d), 1, 1)
         lib = self._nlib
         if lib is not None:
             out = self._native_canon2(lib.sfg_ring_add, a, b)
@@ -450,7 +449,7 @@ class Ring:
     def sub(self, a, b):
         d = _dev(a, b)
         if d is not None:
-            return cuda_ring.reduce(self, to_device(a, d) - to_device(b, d))
+            return cuda_ring.combine(self, to_device(a, d), to_device(b, d), 1, -1)
         lib = self._nlib
         if lib is not None:
             out = self._native_canon2(lib.sfg_ring_sub, a, b)
@@ -461,7 +460,7 @@ class Ring:
     def neg(self, a):
         d = _dev(a)
         if d is not None:
-            return cuda_ring.reduce(self, -to_device(a, d))
+            return cuda_ring.combine(self, to_device(a, d), None, -1, 0)
         lib = self._nlib
         if (
             lib is not None
@@ -499,7 +498,7 @@ class Ring:
         d = _dev(a)
         if -(1 << 9) < v < (1 << 9):
             if d is not None:
-                return cuda_ring.reduce(self, to_device(a, d) * v)
+                return cuda_ring.combine(self, to_device(a, d), None, v, 0)
             return self.np_reduce(np.asarray(a, np.int64) * v)
         return self.mul(a, self.const(v, d))
 
@@ -562,7 +561,7 @@ class Ring:
         assert a.shape[axis] < (1 << 22)  # the digit sums stay below 2^31
         d = _dev(a)
         if d is not None:
-            return cuda_ring.reduce(self, torch.sum(to_device(a, d), dim=axis, dtype=torch.int32))
+            return cuda_ring.sum_axis(self, to_device(a, d), axis)
         return self.np_reduce(np.sum(np.asarray(a, np.int64), axis=axis))
 
     # -------------------------------------------------------------- bit ops

@@ -816,6 +816,227 @@ def test_ring_kernels_raise_on_what_they_cannot_take(dev):
                       torch.zeros((2, 32), dtype=torch.int64, device=dev))
 
 
+# ---- K8 and K9 staged, K8's fused entries (combine, sum_axis, from_i32)
+
+RAGGED_N = [1, 127, 128, 129, 198_674]  # off and on the 128-row block; the sqrt's 2n
+
+
+def _unaligned(t):
+    """t's values in a contiguous view that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = flat[1 : t.numel() + 1].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("nd", [1, 4, 7, "L", "2L-1"])
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_staged_ring_reduce_matches_plain(dev, name, n, nd):
+    """K8 on signed digits of any int32 value at 1, 4, an odd, L and 2L-1
+    digits, on an aligned and an unaligned view (the 16-byte and the 4-byte
+    copies into the tile)."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    nd = {"L": ring.nlimb, "2L-1": 2 * ring.nlimb - 1}.get(nd, nd)
+    x = np.random.default_rng(n * 7 + nd).integers(-(2**31), 2**31 - 1, size=(n, nd))
+    x[0] = 2**31 - 1
+    x = torch.as_tensor(x.astype(np.int32)).to(dev)
+    want = cuda_ring.reduce_plain(ring, x.cpu())
+    for view in (x, _unaligned(x)):
+        before = cuda_ring.RING_REDUCE.launches
+        got = cuda_ring.reduce(ring, view)
+        torch.cuda.synchronize()
+        assert cuda_ring.RING_REDUCE.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+COMBINE_SCALES = [(1, 1), (1, -1), (-1, 0), (-511, 0), (-3, 0), (2, 0), (511, 0), (-511, 511)]
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_ring_combine_matches_plain(dev, name, n):
+    """K8's combine entry at add, sub, neg and mul_int's constants, on
+    aligned and unaligned operands, each call one launch."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    a, b = _ring_elems(ring, (n,), 11, dev), _ring_elems(ring, (n,), 12, dev)
+    b[-1] = 255
+    for sa, sb in COMBINE_SCALES:
+        y = None if sb == 0 else b
+        want = cuda_ring.combine_plain(ring, a.cpu(), None if y is None else y.cpu(), sa, sb)
+        for x in (a, _unaligned(a)):
+            before = cuda_ring.RING_COMBINE.launches
+            got = cuda_ring.combine(ring, x, None if y is None else _unaligned(y), sa, sb)
+            torch.cuda.synchronize()
+            assert cuda_ring.RING_COMBINE.launches == before + 1
+            assert torch.equal(got.cpu(), want), (sa, sb)
+
+
+# broadcast forms read in place: one row against [n, L] (mul_const, a
+# constant), [c, 1, L] against [c, n, L] (the 3 x 3 inverse's column
+# products), [n, L] against [c, n, L]
+BROADCASTS = [((1,), ("n",)), ((), ("n",)), ((3, 1), (3, "n")), (("n",), (3, "n"))]
+
+
+def _bshape(shape, n):
+    return tuple(n if d == "n" else d for d in shape)
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("form", range(len(BROADCASTS)))
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_broadcast_operands_read_in_place(dev, name, form, n):
+    """K9 and K8's combine with a broadcast operand on either side, and with
+    a transposed one, equal the plain versions on the materialised operands,
+    with no copy."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    sa, sb = BROADCASTS[form]
+    a, b = _ring_elems(ring, _bshape(sa, n), 13, dev), _ring_elems(ring, _bshape(sb, n), 14, dev)
+    copies = cuda_ring.OPERAND_COPIES
+    pairs = [(a, b), (b, a)]
+    if b.dim() == 3:  # [3, n, L] against its transpose's transpose
+        bt = b.transpose(0, 1).contiguous().transpose(0, 1)
+        pairs.append((bt, b))
+    for x, y in pairs:
+        X, Y = (t.expand(torch.broadcast_shapes(x.shape, y.shape)).contiguous().cpu()
+                for t in (x, y))
+        before = cuda_ring.RING_MUL.launches
+        got = cuda_ring.mul(ring, x, y)
+        torch.cuda.synchronize()
+        assert cuda_ring.RING_MUL.launches == before + 1
+        assert torch.equal(got.cpu(), cuda_ring.mul_plain(ring, X, Y))
+        got = cuda_ring.combine(ring, x, y, 1, -1)
+        assert torch.equal(got.cpu(), cuda_ring.combine_plain(ring, X, Y, 1, -1))
+    assert cuda_ring.OPERAND_COPIES == copies
+
+
+def test_operands_past_four_axes_are_copied_and_counted(dev):
+    """Broadcast axes between an operand's own are read in place up to four
+    axes; past four the operand is copied out first and counted."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring("LElem256")
+    for sa, sb, copied in (((4, 1, 3), (1, 6, 1), 0),
+                           ((2, 1, 2, 1, 2, 1, 2), (1, 2, 1, 2, 1, 2, 1), 2)):
+        a, b = _ring_elems(ring, sa, 15, dev), _ring_elems(ring, sb, 16, dev)
+        copies = cuda_ring.OPERAND_COPIES
+        got = cuda_ring.mul(ring, a, b)
+        assert cuda_ring.OPERAND_COPIES == copies + copied
+        assert torch.equal(got.cpu(), cuda_ring.mul_plain(ring, a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("k,axis", [(2, 0), (37, 1), (3, 1)])
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_ring_sum_matches_plain(dev, name, n, k, axis):
+    """K8's sum entry over the leading and a middle axis, all digits 255 and
+    random, one launch."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    shape = (k, n) if axis == 0 else (2, k, n) if k == 3 else (n, k)
+    for a in (_ring_elems(ring, shape, 17, dev),
+              torch.full(shape + (ring.nlimb,), 255, dtype=torch.int32, device=dev)):
+        before = cuda_ring.RING_SUM.launches
+        got = cuda_ring.sum_axis(ring, a, axis)
+        torch.cuda.synchronize()
+        assert cuda_ring.RING_SUM.launches == before + 1
+        assert torch.equal(got.cpu(), cuda_ring.sum_plain(ring, a.cpu(), axis))
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_ring_from_i32_matches_plain(dev, name, n):
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    v = np.random.default_rng(n).integers(-(2**31), 2**31 - 1, size=n).astype(np.int32)
+    v[0] = -1
+    v = torch.as_tensor(v).to(dev)
+    before = cuda_ring.RING_FROM_I32.launches
+    got = cuda_ring.from_i32(ring, v)
+    torch.cuda.synchronize()
+    assert cuda_ring.RING_FROM_I32.launches == before + 1
+    assert torch.equal(got.cpu(), cuda_ring.from_i32_plain(ring, v.cpu()))
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("name", RING_NAMES)
+def test_staged_ring_mul_matches_plain(dev, name, n):
+    """K9 on aligned and unaligned operands."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    ring = _ring(name)
+    a, b = _ring_elems(ring, (n,), 18, dev), _ring_elems(ring, (n,), 19, dev)
+    want = cuda_ring.mul_plain(ring, a.cpu(), b.cpu())
+    for x, y in ((a, b), (_unaligned(a), b), (a, _unaligned(b))):
+        assert torch.equal(cuda_ring.mul(ring, x, y).cpu(), want)
+
+
+def _device_kernels(fn, reps=3):
+    """The device kernels fn() launches, reps calls under torch.profiler
+    (after one call outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+# ring op (its operands on the card) -> its kernel's device function
+FUSED_OPS = {
+    "add": (lambda r, a, b, i: r.add(a, b), "ring_combine_kernel"),
+    "add_row": (lambda r, a, b, i: r.add(a, b[:1]), "ring_combine_kernel"),
+    "sub": (lambda r, a, b, i: r.sub(a, b), "ring_combine_kernel"),
+    "neg": (lambda r, a, b, i: r.neg(a), "ring_combine_kernel"),
+    "mul_int": (lambda r, a, b, i: r.mul_int(a, -37), "ring_combine_kernel"),
+    "sum": (lambda r, a, b, i: r.sum(a.reshape(3, -1, a.shape[-1]), axis=0), "ring_sum_kernel"),
+    "from_i32": (lambda r, a, b, i: r.from_i32(i), "ring_from_i32_kernel"),
+    "mul_row": (lambda r, a, b, i: r.mul(a, b[:1]), "ring_mul_kernel"),
+    "mul_const": (lambda r, a, b, i: r.mul_const(a, b[0]), "ring_mul_kernel"),
+    "mul_column": (lambda r, a, b, i: r.mul(a.reshape(3, -1, a.shape[-1]),
+                                            b[:3].reshape(3, 1, -1)), "ring_mul_kernel"),
+    "add_transposed": (lambda r, a, b, i: r.add(a[:9].reshape(3, 3, -1),
+                                                 b[:9].reshape(3, 3, -1).transpose(0, 1)),
+                       "ring_combine_kernel"),
+}
+
+
+@pytest.mark.parametrize("op", sorted(FUSED_OPS))
+def test_ring_op_in_device_mode_is_one_launch(dev, monkeypatch, op):
+    """In device mode each of these ring ops on operands on the card runs one
+    launch of its kernel and no other device work (no copy of a broadcast or
+    transposed operand)."""
+    from sfgwas_tpu_torch.ops import cuda_ring
+    from sfgwas_tpu_torch.ops import ring as PR
+
+    ring = _ring("LElem256")
+    monkeypatch.setattr(ring, "host", False)
+    a, b = _ring_elems(ring, (3 * 70,), 20, dev), _ring_elems(ring, (3 * 70,), 21, dev)
+    i32 = torch.arange(-100, 110, dtype=torch.int32, device=dev)
+    fn, kernel = FUSED_OPS[op]
+    copies = cuda_ring.OPERAND_COPIES
+    names = _device_kernels(lambda: fn(ring, a, b, i32))
+    assert len(names) == 3 and all(kernel in nm for nm in names), names
+    assert cuda_ring.OPERAND_COPIES == copies
+    got = PR.to_host(fn(ring, a, b, i32))
+    cpu = fn(ring, a.cpu(), b.cpu(), i32.cpu())
+    np.testing.assert_array_equal(got, cpu.numpy())
+
+
 def test_ss_device_mode_on_card_matches_host_mode(dev, monkeypatch):
     """sqrt_and_sqrt_inverse and a 3 x 3 matrix_inverse_sqrt_svd with the
     shares on the card (ring.host False) equal host mode bit for bit."""

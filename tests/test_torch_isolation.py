@@ -155,14 +155,20 @@ def test_wrappers_take_plain_path_on_cpu():
     assert torch.equal(c[0], p[0]) and torch.equal(c[1], p[1])
     t = rns._crt_tables(basis, rows, (0, 1, 2), "cpu")
     assert torch.equal(rns.crt_lift(x[:, 0], t), rns.crt_lift_plain(x[:, 0], t))
-    # K8-K11 on CPU tensors
+    # K8 and its entries, K9-K11 on CPU tensors
     ring = PR.LElem256
     a = torch.as_tensor(np.array(ring.rand(rng, (4, 3))))
     assert torch.equal(cuda_ring.reduce(ring, a[0] * 7), cuda_ring.reduce_plain(ring, a[0] * 7))
     assert torch.equal(cuda_ring.mul(ring, a[0], a[1]), cuda_ring.mul_plain(ring, a[0], a[1]))
     assert torch.equal(cuda_ring.matmul(ring, a[:2], a[1:]), cuda_ring.matmul_plain(ring, a[:2], a[1:]))
     assert torch.equal(cuda_ring.dot(ring, a, a[0]), cuda_ring.dot_plain(ring, a, a[0]))
+    assert torch.equal(cuda_ring.combine(ring, a[0], a[1], 1, -1),
+                       cuda_ring.combine_plain(ring, a[0], a[1], 1, -1))
+    assert torch.equal(cuda_ring.sum_axis(ring, a, 0), cuda_ring.sum_plain(ring, a, 0))
+    v = torch.arange(-3, 3, dtype=torch.int32)
+    assert torch.equal(cuda_ring.from_i32(ring, v), cuda_ring.from_i32_plain(ring, v))
     assert {k: v.launches for k, v in cuda_build.REGISTRY.items()} == before
     assert set(cuda_build.REGISTRY) == {"ntt_fwd", "ntt_inv", "ks_digit_product", "mac_dense",
                                         "uniform_mod", "bs_mask", "bs_combine", "crt_lift",
-                                        "ring_reduce", "ring_mul", "ring_matmul", "ring_dot"}
+                                        "ring_reduce", "ring_combine", "ring_sum",
+                                        "ring_from_i32", "ring_mul", "ring_matmul", "ring_dot"}
