@@ -53,7 +53,10 @@ Phases (any failed check raises; the exit code is then nonzero):
     K5 (bs_mask, bs_combine) and K6 are held bit for bit against their
     plain versions at every shape the phase launches them with, recorded at
     their wrappers (K4-K6 on the phase's own inputs, K1 on random residues
-    of the rows' primes), and timed;
+    of the rows' primes), and timed; a bs_mask record names the kernel
+    that took it (the register kernel, with its split, or the generic
+    one), and every path's mask launches by word count go to
+    chip_smoke.json's k5_launches_by_nwords;
  7. the secret-sharing domain and the SS<->HE bridge at PN14QP438: three
     parties as threads on the card (dealer 0, data parties 1 and 2, hub 1;
     run_parties with the 256-bit field, 60 data bits, 30 fraction bits,
@@ -110,7 +113,10 @@ Phases (any failed check raises; the exit code is then nonzero):
     1e-4 of numpy's QR (each column with the sign of the Householder
     one) and Q^T Q within 1e-4 of I; then K1 and K3-K6 against their
     plain versions at every shape of each call that no earlier check
-    held;
+    held.  K5's generic kernel, which no path of this preset launches
+    (every mask has at most 18 words on primes within the register
+    kernel's lazy bound), is held to its plain version and timed at the
+    CholeskyQR's widest mask, off the path (qr.bs_mask_generic_off_path);
  9. the linear association phase at PN14QP438, phases 1 and 3 of
     sfgwas_tpu/gwas/protocol.py driven by hand: three parties as threads on
     the card (run_parties as in phase 7) under collective keys from
@@ -365,19 +371,20 @@ MHE_PATH = ("ntt_fwd", "ntt_inv", "uniform_mod", "bs_mask", "bs_combine", "crt_l
 DEVICE_NAMES = {
     "ntt_fwd": r"ntt_kernel<\d+, false>", "ntt_inv": r"ntt_kernel<\d+, true>",
     "mac_dense": r"mac_dense_kernel", "ks_digit_product": r"ks_digit_kernel",
-    "uniform_mod": r"uniform_mod_kernel", "bs_mask": r"bs_mask(_generic)?_kernel",
+    "uniform_mod": r"uniform_mod_kernel", "bs_mask": r"bs_mask_kernel",
+    "bs_mask_generic": r"bs_mask_generic_kernel",
     "bs_combine": r"bs_combine_kernel", "crt_lift": r"crt_lift_kernel",
     "ring_reduce": r"ring_reduce_kernel", "ring_mul": r"ring_mul_kernel",
     "ring_combine": r"ring_combine_kernel", "ring_sum": r"ring_sum_kernel",
     "ring_from_i32": r"ring_from_i32_kernel",
     "ring_matmul": r"ring_matmul_kernel", "ring_dot": r"ring_dot_kernel",
 }
-# integer operations per second: the card's 67 TFLOP/s float32 rate outside
-# the tensor cores (NVIDIA data sheet), the only non-tensor rate published;
-# a multiply-add counts as two operations, as a fused multiply-add does in
-# that rate, and the int32 pipe is not faster, so this bounds the time from
-# below.  It is the script's only integer peak.
-INT_OPS_PER_S = 67e12
+# integer operations per second: the H100 SXM's INT32 peak, 33.5 TOPS
+# (NVIDIA H100 Tensor Core GPU Architecture white paper), a multiply-add
+# counted as two operations; half the 67 TFLOP/s float32 rate, since an SM
+# has 64 INT32 lanes beside its 128 FP32 lanes.  It is the script's only
+# integer peak.
+INT_OPS_PER_S = 33.5e12
 
 
 def _say(*a):
@@ -804,18 +811,78 @@ def _bs_mask_call(PM, tl, tf, sd, idx, b, nwords, top, logn):
                       nwords, top, logn)
 
 
+def _bs_mask_variant(PM, tl, tf, nwords, logn) -> str:
+    """The kernel the tree's bs_mask takes for these tables (a tree from
+    before the variants split took the register kernel for 1-4 words on
+    primes in (2^24, 2^28))."""
+    if hasattr(PM, "bs_mask_variant"):
+        return PM.bs_mask_variant(tl, tf, nwords, logn)
+    return "register" if tl["fast"] and tf["fast"] and nwords <= 4 and logn >= 2 else "generic"
+
+
 def _bs_mask_check(torch, PM, kernels, tl, tf, sd, idx, b, nwords, top, logn, launch):
-    """bs_mask against its plain version; `launch` is the wrapper to time."""
+    """bs_mask against its plain version; `launch` is the wrapper to time.
+    The record names the kernel's variant (its device function: bs_mask
+    for the register kernel, bs_mask_generic for the generic one)."""
     L, Lf, N = tl["q"].shape[0], tf["q"].shape[0], 1 << logn
     cols = b * N
     nbytes = 4 * (L + Lf) * cols
-    _check(torch, kernels, f"bs_mask {[nwords, b, L, Lf, N]}", "bs_mask",
+    variant = _bs_mask_variant(PM, tl, tf, nwords, logn)
+    sym = "bs_mask" if variant == "register" else "bs_mask_generic"
+    _check(torch, kernels, f"{sym} {[nwords, b, L, Lf, N]}", sym,
            "sfgwas_tpu_torch/csrc/bs_share.cu", "sfgwas_tpu/mpc/mhe.py:601",
            [nwords, b, L, Lf, N], lambda: list(launch(tl, tf, sd, idx, b, nwords, top, logn)),
            lambda: list(PM.bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], sd, idx, b,
                                          nwords, top, N)),
            max(5, min(100, int(2e8 // (nbytes + 1)))), 1, nbytes,
            cols * (nwords * (THREEFRY_OPS + 2) + (L + Lf) * (2 * nwords + BARRETT_OPS)))
+    kernels[-1]["variant"] = variant
+    if variant == "register" and hasattr(PM, "bs_mask_split"):
+        kernels[-1]["split"] = PM.bs_mask_split(b, logn)
+
+
+# K5's mask launches on each path, by word count: {path: {nwords: {"launches":
+# n, "variants": the kernels that took them}}}
+K5_BY_PATH: dict = {}
+
+
+def _k5_by_nwords(PM, rec, path: str) -> None:
+    """The bs_mask launches `rec` counted on a path, by word count, each with
+    the variants that took them, into K5_BY_PATH."""
+    out: dict = {}
+    for (name, key), n in sorted(rec.counts.items()):
+        if name != "bs_mask":
+            continue
+        tl, tf, _, _, _, nwords, _, logn = rec.args["bs_mask"][key]
+        e = out.setdefault(str(nwords), {"launches": 0, "variants": []})
+        e["launches"] += n
+        v = _bs_mask_variant(PM, tl, tf, nwords, logn)
+        if v not in e["variants"]:
+            e["variants"].append(v)
+    K5_BY_PATH[path] = dict(sorted(out.items(), key=lambda kv: int(kv[0])))
+    _say(f"{path}: bs_mask launches by word count {json.dumps(K5_BY_PATH[path])}")
+
+
+def _bs_mask_generic_off_path(torch, PM, rec, launches, path: str) -> dict:
+    """The generic kernel, which no path of this preset launches (every
+    mask here has at most BS_REG_WORDS words on primes within the lazy
+    bound), held to its plain version and timed at the path's widest
+    recorded mask, on its tables marked past the lazy bound (as a table of
+    larger primes would be): off the path, with the path's count of its
+    launches."""
+    key = max(rec.args["bs_mask"], key=lambda k: (k[3], k[0]))
+    tl, tf, sd, idx, b, nwords, top, logn = rec.args["bs_mask"][key]
+    past = {"lazy": False}
+    out: list = []
+    _bs_mask_check(torch, PM, out, {**tl, **past}, {**tf, **past}, sd, idx, b, nwords, top, logn,
+                   rec.real["bs_mask"])
+    if out[-1]["variant"] != "generic":
+        raise AssertionError(f"bs_mask took the {out[-1]['variant']} kernel past the lazy bound")
+    out[-1].update(launches=launches["bs_mask_generic"], path=path, on_path=False)
+    if not out[-1]["bit_equal"]:
+        raise AssertionError(f"kernels differ from their plain versions: {out[-1]['name']}")
+    _say(f"{path}: off the path {json.dumps(out[-1])}")
+    return out[-1]
 
 
 def _smi():
@@ -989,7 +1056,10 @@ def _collective_kernel_checks(torch, rec, launches, params, kernels, path: str,
     record.  Returns (K1's shapes, K1's total ms over the shapes timed, the
     shapes --tree times, equal_only)."""
     global TIMING
+    from sfgwas_tpu_torch.mpc import mhe as PM
+
     counts = rec.counts
+    _k5_by_nwords(PM, rec, path)
     # K1 at every recorded (direction, rows, shape)
     k1_shapes = rec.k1_shapes()
     del rec.args["k1"]  # K1 is checked on random residues of the rows' primes
@@ -1088,7 +1158,7 @@ def _kernel_rows(torch, rec, todo, args, launches, params, kernels, path: str):
         tl, tf, sd, idx, b, nwords, top, logn = a
         _bs_mask_check(torch, PM, kernels, tl, tf, sd, idx, b, nwords, top, logn,
                        real["bs_mask"])
-        kernels[-1].update(launches=launches["bs_mask"], path=path,
+        kernels[-1].update(launches=launches[kernels[-1]["kernel"]], path=path,
                            launches_at_shape=counts[("bs_mask", key)])
         bs_shapes.append([b, tl["rows"].tolist(), tf["rows"].tolist(), nwords, top])
     for key, a in sorted(args["bs_combine"].items()):
@@ -2238,6 +2308,7 @@ def qr_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     and the kernels at their new shapes.  Appends the kernels' records to `kernels`;
     returns the phase's record."""
     from sfgwas_tpu_torch.crypto.params import get_params
+    from sfgwas_tpu_torch.mpc import mhe as PM
 
     params = get_params("PN14QP438")
     t0 = time.time()
@@ -2277,7 +2348,9 @@ def qr_phase(torch, seed: int, out_dir: str, kernels: list) -> dict:
     k1_shapes, k1_total, tree_shapes, _ = _collective_kernel_checks(
         torch, rec, launches, params, kernels, "qr")
     line.update(launches=launches, profile=profiled, k1_total_ms=k1_total, k1_shapes=k1_shapes,
-                tree_shapes=tree_shapes)
+                tree_shapes=tree_shapes,
+                bs_mask_generic_off_path=_bs_mask_generic_off_path(torch, PM, rec, launches,
+                                                                   "qr"))
 
     # the Householder QRs: each within HH_TOL of numpy, then every kernel at
     # each shape of the two calls that no earlier check held
@@ -5068,6 +5141,7 @@ def main() -> int:
         "householder_study": householder_study,
         "shard": shard,
         "routed_study": routed_study,
+        "k5_launches_by_nwords": K5_BY_PATH,
     }
     record["script_s"] = time.time() - t_script
     os.makedirs(out_dir, exist_ok=True)

@@ -26,26 +26,43 @@
 // reads 3 streamed inputs and writes one residue per output).
 //
 // bs_mask's first design kept each thread's words in shared memory that only
-// it read, and folded every row through a loop over a runtime word count and
-// a 64-bit Barrett step.  This design, for nwords 1..4 (PN14 draws 3) when
-// every prime lies in (2^24, 2^28):
-//  * keeps the words in registers (a template over nwords);
-//  * gives a thread 4 consecutive coefficients of one b, whose nwords * 4
-//    hashes run together (threefry.cuh), with one 16-byte store per row; b
-//    is the grid's y index, so the counters' high words and the row
-//    constants are the block's;
-//  * folds each word (a residue: below 2^24 < q) by a Shoup multiply with
-//    p_k and its quotient ps_k = floor(p_k 2^32 / q) into [0, 2q), adds the
-//    row's centring constant in (0, 2q], and reduces the sum (below
-//    2q (nwords + 1) <= 10q < 2^32) with one 32-bit Barrett step
+// it read, and folded every row through a loop over a runtime word count,
+// reducing each word's term before adding the next: a row was a chain of
+// nwords dependent steps.  This design, for every count up to REG_WORDS =
+// 18 (PN14QP438's widest mask):
+//  * folds from registers (a template over nwords);
+//  * gives a thread 4 consecutive coefficients of one b, whose hashes run
+//    together (threefry.cuh), two words (8 counters) at a time, into a
+//    shared tile that the thread reads back, one 16-byte entry a word; one
+//    16-byte store per row; b is the grid's y index, so the counters' high
+//    words and the row constants are the block's;
+//  * folds each word (below 2^24) by a Shoup multiply with p_k and its
+//    quotient ps_k = floor(p_k 2^32 / q) into [0, 2q), adds every word's
+//    term and the row's centring constant in (0, 2q] without a reduction
+//    between them, and reduces the sum once with one 32-bit Barrett step
 //    (m = floor(2^32 / q), the high word of mu) and a conditional subtract.
+//    The lazy sum stays below 2q (nwords + 1), so the wrapper takes this
+//    kernel only where 2 (nwords + 1) q_max < 2^32 for the table's largest
+//    prime (mhe.py bs_lazy; at PN14QP438's primes below 2^25.2, up to 58
+//    words).  Shoup's fold needs no other bound on q: a word may exceed it;
+//  * on grids too small to fill the card (mhe.py bs_mask_split: fewer than
+//    four blocks an SM), 2 or 4 warps share a run of coefficients: each
+//    hashes its part of the words into the tile, and each folds its part of
+//    the rows from all the words.  On an H100 at 10 words, B 12 (384
+//    blocks) the mask took 0.022 ms against the generic kernel's 0.050, and
+//    the widest mask of one refresh (18 words, B 1, 32 blocks) 0.0093 at 4
+//    warps against 0.028 unsplit.  A thread that kept its words in
+//    registers throughout, hashing up to 4 words at once, was no faster
+//    (3-4% ahead at 3 words, B 64; 5-11% behind at the main path's shapes).
 // In SASS (cuobjdump, nwords 3) the hashes take about 70 instructions a
 // word and the row loop 102 for 4 coefficients, 74 of them IMAD: from about
 // a dozen rows on, the folds' multiplies on the FMA pipe outweigh the
 // hashes' rotates and xors on the ALU pipe.
-// Other word counts and primes take the generic kernel, for up to MAX_WORDS
-// words: the words in shared memory, each word's Shoup term reduced and
-// added in turn, the sum kept below q (exact for any q < 2^31).
+// Masks of more than REG_WORDS words, tables past the lazy bound and rings
+// of N < 4 take the generic kernel, for up to MAX_WORDS words: the first
+// design, exact for any q < 2^31.
+
+#include <utility>
 
 #include "common.cuh"
 #include "threefry.cuh"
@@ -54,6 +71,7 @@ namespace {
 
 constexpr int MASK_THREADS = 128;
 constexpr int MASK_VEC = 4;     // coefficients a thread in bs_mask_kernel
+constexpr int REG_WORDS = 18;   // the most words bs_mask_kernel takes
 constexpr int MAX_WORDS = 96;  // 96 * 128 * 4 = 48 KB of shared memory, no opt-in
 constexpr int THREADS = 256;
 
@@ -69,8 +87,10 @@ __device__ __forceinline__ void fold_rows_v(uint32_t* __restrict__ out,
                                             const uint32_t* __restrict__ qv,
                                             const uint64_t* __restrict__ muv,
                                             const uint32_t (&w)[K * MASK_VEC], uint32_t h,
-                                            int rows, size_t row_stride) {
-    for (int r = 0; r < rows; ++r) {
+                                            int r0, int rows, int step, size_t row_stride) {
+    // two rows a pass: at 11 words the loop alone left ptxas spilling
+#pragma unroll 2
+    for (int r = r0; r < rows; r += step) {
         const uint32_t q = __ldg(qv + r), m = (uint32_t)(__ldg(muv + r) >> 32);
         uint32_t p[K], s[K];
 #pragma unroll
@@ -91,6 +111,36 @@ __device__ __forceinline__ void fold_rows_v(uint32_t* __restrict__ out,
     }
 }
 
+// words k..k+C-1 of the thread's run, hashed together, into the block's
+// word tile [K][runs] (one 16-byte entry a word and run)
+template <int C>
+__device__ __forceinline__ void hash_store(const TfKey key, uint4* tile, const int k, const int runs,
+                                           const int run, const uint64_t cols, const uint64_t bn,
+                                           const uint32_t n0) {
+    // counter (k*B + b)*N + n: the base is a multiple of N, n < N, so the
+    // low word never carries
+    uint32_t x0[C * MASK_VEC], x1[C * MASK_VEC];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        const uint64_t base = (uint64_t)(k + c) * cols + bn;
+#pragma unroll
+        for (int v = 0; v < MASK_VEC; ++v) {
+            x0[c * MASK_VEC + v] = (uint32_t)(base >> 32);
+            x1[c * MASK_VEC + v] = (uint32_t)base + n0 + v;
+        }
+    }
+    tf_bits_v(key, x0, x1);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+        tile[(k + c) * runs + run] = make_uint4(x0[c * MASK_VEC], x0[c * MASK_VEC + 1],
+                                                x0[c * MASK_VEC + 2], x0[c * MASK_VEC + 3]);
+}
+
+// split = G (1, 2 or 4) warps share 32 runs of MASK_VEC coefficients: warp
+// role j = w mod G hashes words [j M, j M + M) (M = ceil(K / G)), two at a
+// time, into the block's shared word tile, every thread reads its run's K
+// words back into registers and folds rows j, j + G, ... of the L + Lf
+// rows.  No hash is repeated.
 template <int K>
 __global__ void __launch_bounds__(MASK_THREADS)
 bs_mask_kernel(uint32_t* __restrict__ out_l, uint32_t* __restrict__ out_f,
@@ -99,31 +149,43 @@ bs_mask_kernel(uint32_t* __restrict__ out_l, uint32_t* __restrict__ out_f,
                const uint32_t* __restrict__ q_l, const uint32_t* __restrict__ q_f,
                const uint64_t* __restrict__ mu_l, const uint64_t* __restrict__ mu_f,
                const TfKey key, const int B, const int top_bits, const int L, const int Lf,
-               const int logn) {
-    const uint32_t n0 = (blockIdx.x * MASK_THREADS + threadIdx.x) * MASK_VEC;
-    if (n0 >> logn) return;
+               const int logn, const int split) {
+    extern __shared__ uint4 tile[];  // [K][runs]
+    const int G = split, runs = MASK_THREADS / G;
+    const int warp = threadIdx.x >> 5, role = warp % G;
+    const int run = (warp / G) * 32 + (threadIdx.x & 31);
+    const uint32_t n0 = (blockIdx.x * runs + run) * MASK_VEC;
+    const bool active = !(n0 >> logn);
     const size_t cols = (size_t)B << logn;
     const uint32_t h = 1u << (top_bits - 1);
+    const int M = (K + G - 1) / G, k0 = min(K, role * M), k1 = min(K, k0 + M);
     for (int b = blockIdx.y; b < B; b += gridDim.y) {
-        // counter (k*B + b)*N + n: the base is a multiple of N, n < N, so the
-        // low word never carries
-        uint32_t x0[K * MASK_VEC], x1[K * MASK_VEC];
+        const uint64_t bn = (uint64_t)b << logn;
+        uint32_t w[K * MASK_VEC];
+        if (active) {
+            int k = k0;
+            for (; k + 2 <= k1; k += 2) hash_store<2>(key, tile, k, runs, run, cols, bn, n0);
+            if (k < k1) hash_store<1>(key, tile, k, runs, run, cols, bn, n0);
+        }
+        __syncthreads();
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-            const uint64_t base = (uint64_t)k * cols + ((uint64_t)b << logn);
-#pragma unroll
-            for (int v = 0; v < MASK_VEC; ++v) {
-                x0[k * MASK_VEC + v] = (uint32_t)(base >> 32);
-                x1[k * MASK_VEC + v] = (uint32_t)base + n0 + v;
-            }
+            const uint4 t = tile[k * runs + run];
+            w[k * MASK_VEC] = t.x;
+            w[k * MASK_VEC + 1] = t.y;
+            w[k * MASK_VEC + 2] = t.z;
+            w[k * MASK_VEC + 3] = t.w;
         }
-        tf_bits_v(key, x0, x1);
+        __syncthreads();  // the next b's words overwrite the tile
+        if (!active) continue;
 #pragma unroll
         for (int i = 0; i < K * MASK_VEC; ++i)
-            x0[i] &= i < (K - 1) * MASK_VEC ? 0xFFFFFFu : (1u << top_bits) - 1;
-        const size_t off = ((size_t)b << logn) + n0;
-        fold_rows_v<K>(out_l + off, pw_l, ps_l, q_l, mu_l, x0, h, L, cols);
-        fold_rows_v<K>(out_f + off, pw_f, ps_f, q_f, mu_f, x0, h, Lf, cols);
+            w[i] &= i < (K - 1) * MASK_VEC ? 0xFFFFFFu : (1u << top_bits) - 1;
+        const size_t off = bn + n0;
+        // row r of out_f is row L + r of the two sets together
+        fold_rows_v<K>(out_l + off, pw_l, ps_l, q_l, mu_l, w, h, role, L, G, cols);
+        fold_rows_v<K>(out_f + off, pw_f, ps_f, q_f, mu_f, w, h, (role + G - L % G) % G, Lf, G,
+                       cols);
     }
 }
 
@@ -201,6 +263,24 @@ bs_combine_kernel(uint32_t* __restrict__ h1, uint32_t* __restrict__ h2,
     }
 }
 
+using MaskKernel = decltype(&bs_mask_kernel<1>);
+
+// bs_mask_kernel<nwords>, nwords in 1..REG_WORDS
+template <int... Is>
+MaskKernel reg_kernel(int nwords, std::integer_sequence<int, Is...>) {
+    static const MaskKernel table[] = {bs_mask_kernel<Is + 1>...};
+    return table[nwords - 1];
+}
+
+bool mask_args_ok(void* out_l, void* out_f, int B, int nwords, int top_bits, int L, int Lf,
+                  int logn) {
+    if (B < 1 || nwords < 1 || top_bits < 1 || top_bits > 24 || L < 0 || Lf < 0 || logn < 1 ||
+        logn > 20 || (uintptr_t)out_l % 16 || (uintptr_t)out_f % 16)
+        return false;
+    const size_t cols = (size_t)B << logn;
+    return (cols + MASK_THREADS - 1) / MASK_THREADS <= 0x7fffffffu;
+}
+
 }  // namespace
 
 extern "C" {
@@ -209,40 +289,49 @@ const char* csrc_error_string(int e) { return cudaGetErrorString((cudaError_t)e)
 
 int bs_max_words() { return MAX_WORDS; }
 
+int bs_reg_words() { return REG_WORDS; }
+
 // out_l [L, B, N], out_f [Lf, B, N] (coefficient domain, 16-byte aligned);
 // pw_* [rows, nwords] = 2^(24k) mod q and ps_* their Shoup quotients
 // floor(pw 2^32 / q); q_* [rows] uint32 (< 2^31), mu_* [rows] uint64.
-// fast != 0 says every prime of both row sets lies in (2^24, 2^28): then
-// nwords 1..4 take bs_mask_kernel, all else the generic kernel (which reads
-// no mu).
+// The register kernel: nwords 1..REG_WORDS, N >= 4, and the caller
+// vouches that 2 (nwords + 1) q < 2^32 for every prime of both row sets;
+// split (1, 2 or 4) warps share a run of coefficients.
 int bs_mask(void* out_l, void* out_f, const void* pw_l, const void* pw_f, const void* ps_l,
             const void* ps_f, const void* q_l, const void* q_f, const void* mu_l,
             const void* mu_f, unsigned seed_lo, unsigned seed_hi, unsigned idx, int B,
-            int nwords, int top_bits, int L, int Lf, int logn, int fast, void* stream) {
-    if (B < 1 || nwords < 1 || nwords > MAX_WORDS || top_bits < 1 || top_bits > 24 || L < 0 ||
-        Lf < 0 || logn < 1 || logn > 20 || (uintptr_t)out_l % 16 || (uintptr_t)out_f % 16)
+            int nwords, int top_bits, int L, int Lf, int logn, int split, void* stream) {
+    if (!mask_args_ok(out_l, out_f, B, nwords, top_bits, L, Lf, logn) || nwords > REG_WORDS ||
+        logn < 2 || (split != 1 && split != 2 && split != 4))
+        return (int)cudaErrorInvalidValue;
+    const int per_block = MASK_THREADS / split * MASK_VEC;  // coefficients
+    const dim3 grid((unsigned)(((1 << logn) + per_block - 1) / per_block),
+                    (unsigned)(B < 65535 ? B : 65535));
+    const size_t smem = (size_t)nwords * (MASK_THREADS / split) * sizeof(uint4);
+    const MaskKernel kernel = reg_kernel(nwords, std::make_integer_sequence<int, REG_WORDS>{});
+    kernel<<<grid, MASK_THREADS, smem, (cudaStream_t)stream>>>(
+        (uint32_t*)out_l, (uint32_t*)out_f, (const uint32_t*)pw_l, (const uint32_t*)pw_f,
+        (const uint32_t*)ps_l, (const uint32_t*)ps_f, (const uint32_t*)q_l, (const uint32_t*)q_f,
+        (const uint64_t*)mu_l, (const uint64_t*)mu_f, tf_derive_key(seed_lo, seed_hi, idx), B,
+        top_bits, L, Lf, logn, split);
+    return (int)cudaGetLastError();
+}
+
+// the generic kernel: the same arguments but mu (which it does not read),
+// nwords 1..MAX_WORDS, any N and any prime below 2^31
+int bs_mask_generic(void* out_l, void* out_f, const void* pw_l, const void* pw_f,
+                    const void* ps_l, const void* ps_f, const void* q_l, const void* q_f,
+                    unsigned seed_lo, unsigned seed_hi, unsigned idx, int B, int nwords,
+                    int top_bits, int L, int Lf, int logn, void* stream) {
+    if (!mask_args_ok(out_l, out_f, B, nwords, top_bits, L, Lf, logn) || nwords > MAX_WORDS)
         return (int)cudaErrorInvalidValue;
     const size_t cols = (size_t)B << logn;
-    if ((cols + MASK_THREADS - 1) / MASK_THREADS > 0x7fffffffu) return (int)cudaErrorInvalidValue;
-    const TfKey key = tf_derive_key(seed_lo, seed_hi, idx);
-    if (fast && nwords <= 4 && logn >= 2) {
-        decltype(&bs_mask_kernel<1>) const kernels[4] = {bs_mask_kernel<1>, bs_mask_kernel<2>,
-                                                         bs_mask_kernel<3>, bs_mask_kernel<4>};
-        const dim3 grid((((1u << logn) + MASK_THREADS * MASK_VEC - 1) / (MASK_THREADS * MASK_VEC)),
-                        (unsigned)(B < 65535 ? B : 65535));
-        kernels[nwords - 1]<<<grid, MASK_THREADS, 0, (cudaStream_t)stream>>>(
-            (uint32_t*)out_l, (uint32_t*)out_f, (const uint32_t*)pw_l, (const uint32_t*)pw_f,
-            (const uint32_t*)ps_l, (const uint32_t*)ps_f, (const uint32_t*)q_l,
-            (const uint32_t*)q_f, (const uint64_t*)mu_l, (const uint64_t*)mu_f, key, B, top_bits,
-            L, Lf, logn);
-    } else {
-        const size_t smem = (size_t)nwords * MASK_THREADS * sizeof(uint32_t);
-        bs_mask_generic_kernel<<<(unsigned)((cols + MASK_THREADS - 1) / MASK_THREADS),
-                                 MASK_THREADS, smem, (cudaStream_t)stream>>>(
-            (uint32_t*)out_l, (uint32_t*)out_f, (const uint32_t*)pw_l, (const uint32_t*)pw_f,
-            (const uint32_t*)ps_l, (const uint32_t*)ps_f, (const uint32_t*)q_l,
-            (const uint32_t*)q_f, key, B, nwords, top_bits, L, Lf, logn);
-    }
+    const size_t smem = (size_t)nwords * MASK_THREADS * sizeof(uint32_t);
+    bs_mask_generic_kernel<<<(unsigned)((cols + MASK_THREADS - 1) / MASK_THREADS), MASK_THREADS,
+                             smem, (cudaStream_t)stream>>>(
+        (uint32_t*)out_l, (uint32_t*)out_f, (const uint32_t*)pw_l, (const uint32_t*)pw_f,
+        (const uint32_t*)ps_l, (const uint32_t*)ps_f, (const uint32_t*)q_l, (const uint32_t*)q_f,
+        tf_derive_key(seed_lo, seed_hi, idx), B, nwords, top_bits, L, Lf, logn);
     return (int)cudaGetLastError();
 }
 

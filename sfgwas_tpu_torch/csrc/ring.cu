@@ -21,11 +21,11 @@
 // has one digit form, so each is bit-equal to the JAX function wherever
 // that is exact (its int32 carries do not overflow).
 //
-// The arithmetic.  One thread an output element.  Four digits make one
-// 32-bit word.  A product is a schoolbook over the words with 32x32->64
-// multiply-adds and 64-bit carries (K9: 2W words; K10 and K11 add every
-// term's 2W words into a 2W + 1 word sum, exact for up to 2^32 terms, so k
-// needs no chunks).  Every result is brought to canonical form once, by
+// The arithmetic.  One thread an output element (K10: one warp, below).
+// Four digits make one 32-bit word.  A product is a schoolbook over the
+// words with 32x32->64 multiply-adds and 64-bit carries (K9: 2W words; K11
+// adds every term's 2W words into a 2W + 1 word sum, exact for up to 2^32
+// terms, so k needs no chunks; K10 keeps 64-bit column sums instead).  Every result is brought to canonical form once, by
 // canon(): carry the signed words, fold the words at and above 2^(32W) back
 // with 2^(32W) = 189 (p256) or 2 (p127) mod p until none is left, subtract
 // p while the value is at least p; the power-of-two rings drop those words
@@ -44,9 +44,11 @@
 // intermediate goes to device memory.  An operand broadcast or transposed
 // (a constant row, [c, 1, L] against [c, n, L], a matrix's transpose) is
 // read in place from its axes' sizes and strides (Rows).  K10 and K11 do
-// W^2 word products a term; at the SS protocol's shapes (6 x 6 matrices, the
-// normaliser's k = 37 terms a value) they are small, the launch dominates,
-// and they stay the simple kernel: no shared memory, no tensor cores.
+// W^2 word products a term.  K11 (the normaliser's k = 37 terms a value at
+// n = 99,337) streams its rows at 71% of its bytes' bound and stays the
+// simple kernel.  K10's shapes are tiny (6 x 6 matrices): its time is one
+// output element's chain of dependent instructions, which its warp-wide
+// design below shortens.
 
 #include <algorithm>
 
@@ -509,16 +511,159 @@ __device__ __forceinline__ void dot_terms(const int* __restrict__ A, const int* 
     canon_acc<RING>(acc, out);
 }
 
+// ---- K10: a warp an output element
+//
+// The first design ran one thread an output element: k terms of mul_acc, W^2
+// dependent multiply-adds and a carry ripple through the top words after
+// every row of the schoolbook, then canon's signed ripples, one chain of
+// about two thousand dependent instructions at 6 x 6 x 6 with every term's
+// loads waiting on the previous term's products.  Here the warp's 32 lanes
+// split the work of one output element: lane l takes row l % W of the
+// schoolbook (word l % W of A[i, t] times B[t, j]'s W words) for the terms
+// t = l / W, l / W + 32 / W, ..., the next term's words loaded before the
+// current one's products.  Each product's halves go into 64-bit column sums
+// that need no ripple (a column gets at most 2W halves a term, so below
+// 2^63 for k <= MATMUL_MAX_K).  The lanes of one row add their sums by
+// shuffles, the rows' sums meet in shared memory as the 2W + 1 column sums
+// of the whole sum, and one lane carries them into words and reduces them
+// once (canon_cols: 32-bit words with 64-bit carries, no signed words).
+// On an H100 at 6 x 6 x 6 (LElem256) this took the launch from 0.0061 ms
+// to 0.0027, an empty kernel's being 0.0008, and 3 x 900 x 2 from 0.62 to
+// 0.064.  The design is for few outputs, as the SS protocol's products
+// (6 x 6 and smaller) have: at many outputs and small k the warp's one
+// reducing lane would cost 32 times the issue slots of a thread an element.
+
+constexpr int MM_WARPS = 4;                // output elements a block
+constexpr long long MATMUL_MAX_K = 1 << 27;  // 16 k 2^32 < 2^63
+
+// the canonical words of sum_m col[m] 2^(32 m) mod the ring's modulus, for
+// col[m] < 2^63
+template <int RING>
+__device__ __forceinline__ void canon_cols(const uint64_t (&col)[2 * RingDef<RING>::W + 1],
+                                           uint32_t (&o)[RingDef<RING>::W]) {
+    using R = RingDef<RING>;
+    constexpr int W = R::W, NX = 2 * W + 2;
+    // word m: the low half of col[m], the high half of col[m - 1] and the
+    // carry (below 3); the value is below 2^(32 NX), so nothing is left over
+    uint32_t x[NX];
+    uint32_t c = 0;
+#pragma unroll
+    for (int m = 0; m < NX; ++m) {
+        const uint64_t t = (uint64_t)(m < NX - 1 ? (uint32_t)col[m] : 0u) +
+                           (m > 0 ? (uint32_t)(col[m - 1] >> 32) : 0u) + c;
+        x[m] = (uint32_t)t;
+        c = (uint32_t)(t >> 32);
+    }
+    if (R::PRIME) {
+        // value = low + 2^(32 W) high = low + FOLD high mod p, until high is 0
+        // (p256: 576 -> 328 -> 257 bits, then 2^256 + a small value at most twice)
+        for (int it = 0; it < 16; ++it) {
+            uint32_t high = 0;
+#pragma unroll
+            for (int m = W; m < NX; ++m) high |= x[m];
+            if (!high) break;
+            c = 0;
+#pragma unroll
+            for (int m = 0; m < NX; ++m) {
+                // x[W + m] is read here before step W + m writes it
+                const uint64_t t = (uint64_t)(m < W ? x[m] : 0u) +
+                                   (m < NX - W ? (uint64_t)R::FOLD * x[W + m] : 0ull) + c;
+                x[m] = (uint32_t)t;
+                c = (uint32_t)(t >> 32);
+            }
+        }
+        // 0 <= value < 2^(32 W): subtract p while value >= p (at most twice)
+#pragma unroll
+        for (int rep = 0; rep < 2; ++rep) {
+            uint32_t y[W], borrow = 0;
+#pragma unroll
+            for (int m = 0; m < W; ++m) {
+                const uint64_t t = (uint64_t)x[m] - R::p(m) - borrow;
+                y[m] = (uint32_t)t;
+                borrow = (uint32_t)(t >> 63);
+            }
+            if (!borrow) {
+#pragma unroll
+                for (int m = 0; m < W; ++m) x[m] = y[m];
+            }
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < W; ++m) o[m] = x[m];
+    if (!R::PRIME) o[W - 1] &= R::TOP;
+}
+
+__device__ __forceinline__ uint32_t load_word(const int* __restrict__ digits) {
+    const int4 d = __ldg(reinterpret_cast<const int4*>(digits));
+    return (uint32_t)d.x | ((uint32_t)d.y << 8) | ((uint32_t)d.z << 16) | ((uint32_t)d.w << 24);
+}
+
 // K10: [r, k, L] x [k, c, L] -> [r, c, L]
 template <int RING>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MM_WARPS * 32)
 ring_matmul_kernel(const int* __restrict__ A, const int* __restrict__ B, int* __restrict__ out,
                    const int r, const int k, const int c) {
-    constexpr int L = RingDef<RING>::L;
-    const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (e >= (long long)r * c) return;
+    using R = RingDef<RING>;
+    constexpr int W = R::W, L = R::L, SLOTS = 32 / W;
+    __shared__ uint64_t part[MM_WARPS][W][W + 1];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long e = (long long)blockIdx.x * MM_WARPS + warp;
+    if (e >= (long long)r * c) return;  // the whole warp
     const long long i = e / c, j = e % c;
-    dot_terms<RING>(A + i * k * L, B + j * L, k, c, out + e * L);
+    const int row = lane % W, slot = lane / W;
+    const int* a = A + i * k * L + 4 * row;  // word `row` of A[i, t] at a + t L
+    const int* b = B + j * L;                // B[t, j] at b + t c L
+    const long long bstep = (long long)c * L;
+    // acc[m]: this lane's column row + m
+    uint64_t acc[W + 1];
+#pragma unroll
+    for (int m = 0; m <= W; ++m) acc[m] = 0;
+    uint32_t an = 0, bn[W] = {};
+    if (slot < k) {
+        an = load_word(a + (long long)slot * L);
+        load_words<W>(b + slot * bstep, bn);
+    }
+    for (int t = slot; t < k; t += SLOTS) {
+        const uint32_t av = an;
+        uint32_t bv[W];
+#pragma unroll
+        for (int m = 0; m < W; ++m) bv[m] = bn[m];
+        if (t + SLOTS < k) {
+            an = load_word(a + (long long)(t + SLOTS) * L);
+            load_words<W>(b + (t + SLOTS) * bstep, bn);
+        }
+#pragma unroll
+        for (int m = 0; m < W; ++m) {
+            const uint64_t p = (uint64_t)av * bv[m];
+            acc[m] += (uint32_t)p;
+            acc[m + 1] += p >> 32;
+        }
+    }
+    // the row's sums over its term slots (lanes row, row + W, ...)
+#pragma unroll
+    for (int off = W; off < 32; off <<= 1) {
+#pragma unroll
+        for (int m = 0; m <= W; ++m) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], off);
+    }
+    if (slot == 0) {
+#pragma unroll
+        for (int m = 0; m <= W; ++m) part[warp][row][m] = acc[m];
+    }
+    __syncwarp();
+    // lane m < 2W + 1: column m of the whole sum, from the rows that reach it
+    uint64_t mine = 0;
+    if (lane <= 2 * W) {
+        for (int rr = lane > W ? lane - W : 0; rr < W && rr <= lane; ++rr)
+            mine += part[warp][rr][lane - rr];
+    }
+    uint64_t col[2 * W + 1];
+#pragma unroll
+    for (int m = 0; m <= 2 * W; ++m) col[m] = __shfl_sync(0xffffffffu, mine, m);
+    if (lane == 0) {
+        uint32_t o[W];
+        canon_cols<RING>(col, o);
+        store_digits<W>(out + e * L, o);
+    }
 }
 
 // K11: a [n, k, L], coeffs [k, L] -> [n, L]
@@ -650,20 +795,24 @@ int ring_mul(int ring, const void* a, const long long* ageom, const void* b,
     return (int)cudaGetLastError();
 }
 
-// A [r, k, L], B [k, c, L], out [r, c, L] int32, canonical, 16-byte aligned; k < 2^32
+// A [r, k, L], B [k, c, L], out [r, c, L] int32, canonical, 16-byte aligned;
+// 1 <= k <= MATMUL_MAX_K
 int ring_matmul(int ring, const void* A, const void* B, void* out, int r, int k, int c,
                 void* stream) {
     const long long n = (long long)r * c;
-    if (r < 1 || c < 1 || k < 1 || n > 0x7fffffffll * THREADS || !aligned(A) || !aligned(B) ||
-        !aligned(out))
+    if (r < 1 || c < 1 || k < 1 || k > MATMUL_MAX_K || n > 0x7fffffffll * MM_WARPS ||
+        !aligned(A) || !aligned(B) || !aligned(out))
         return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((n + MM_WARPS - 1) / MM_WARPS);
 #define CALL(R)                                                                        \
-    ring_matmul_kernel<R><<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(            \
+    ring_matmul_kernel<R><<<grid, MM_WARPS * 32, 0, (cudaStream_t)stream>>>(            \
         (const int*)A, (const int*)B, (int*)out, r, k, c)
     RING_SWITCH(ring, CALL)
 #undef CALL
     return (int)cudaGetLastError();
 }
+
+long long ring_matmul_max_k() { return MATMUL_MAX_K; }
 
 // a [n, k, L], coeffs [k, L], out [n, L] int32, canonical, 16-byte aligned
 int ring_dot(int ring, const void* a, const void* coeffs, void* out, long long n, int k,

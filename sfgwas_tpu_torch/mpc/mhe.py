@@ -536,9 +536,16 @@ def collective_decrypt_many(net: Network, cps: CryptoParams, cts, source_pid: in
 # Kernel K5: a party's bootstrap share
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+# K5's mask in two variants, each with its own launch count: the register
+# kernel (bs_mask_kernel<nwords>) and the generic one (bs_mask_generic_kernel)
 BS_MASK = CudaKernel("bs_share", "bs_mask", [_P] * 10 + [_U] * 3 + [_I] * 7)
+BS_MASK_GENERIC = CudaKernel("bs_share", "bs_mask_generic", [_P] * 8 + [_U] * 3 + [_I] * 6)
 BS_COMBINE = CudaKernel("bs_share", "bs_combine", [_P] * 15 + [_I] * 4)
 BS_MAX_WORDS = 96  # MAX_WORDS in csrc/bs_share.cu
+BS_REG_WORDS = 18  # REG_WORDS there: the register kernel's most words
+# the register kernel's blocks (N / 512 a b) below which warps share a run
+# of coefficients (bs_mask_split): four blocks for each of the H100's 132 SMs
+BS_SPLIT_BLOCKS = 4 * 132
 _W24 = (1 << 24) - 1
 
 
@@ -572,9 +579,38 @@ def bs_mask_plain(pw_l, pw_f, q_l, q_f, seed, idx: int, B: int, nwords: int, top
     return _fold_words(w, pw_l, q_l), _fold_words(w, pw_f, q_f)
 
 
+def bs_lazy(q_max: int, nwords: int) -> bool:
+    """Whether the register kernel's lazy fold is exact for a prime up to
+    q_max: its sum of nwords Shoup terms and the centring constant, each
+    below 2q, stays below 2^32."""
+    return 2 * (nwords + 1) * q_max < 1 << 32
+
+
+def bs_mask_variant(tl, tf, nwords: int, logn: int) -> str:
+    """The kernel bs_mask launches for these tables: "register" for 1 to
+    BS_REG_WORDS words when both row sets pass the lazy bound and N >= 4
+    (a thread's 4 coefficients), else "generic"."""
+    if nwords <= BS_REG_WORDS and tl["lazy"] and tf["lazy"] and logn >= 2:
+        return "register"
+    return "generic"
+
+
+def bs_mask_split(B: int, logn: int) -> int:
+    """The warps that share a run of 4 coefficients in the register kernel:
+    1, or 2 or 4 where fewer than BS_SPLIT_BLOCKS blocks of 128 threads
+    would leave the card's SMs idle; each split multiplies the blocks by
+    itself."""
+    blocks = B * -(-(1 << logn) // 512)
+    split = 1
+    while split < 4 and blocks * split < BS_SPLIT_BLOCKS:
+        split *= 2
+    return split
+
+
 def bs_mask(tl, tf, seed, idx: int, B: int, nwords: int, top_bits: int, logn: int):
     """K5's bs_mask for CUDA tables (the plain version for CPU ones): tl, tf
-    are the _bs_tables of the two row sets."""
+    are the _bs_tables of the two row sets; bs_mask_variant picks the
+    kernel."""
     n = 1 << logn
     if tl["q"].device.type == "cpu":
         return bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], seed, idx, B, nwords,
@@ -591,12 +627,15 @@ def bs_mask(tl, tf, seed, idx: int, B: int, nwords: int, top_bits: int, logn: in
         check(t["mu"], f"mu_{side}", dev, (rows,), torch.int64)
     out_l = torch.empty((L, B, n), dtype=torch.int32, device=dev)
     out_f = torch.empty((Lf, B, n), dtype=torch.int32, device=dev)
-    BS_MASK.launch(
-        dev, ptr(out_l), ptr(out_f), ptr(tl["pw"]), ptr(tf["pw"]), ptr(tl["ps"]), ptr(tf["ps"]),
-        ptr(tl["q"]), ptr(tf["q"]), ptr(tl["mu"]), ptr(tf["mu"]), int(seed[0]) & threefry.MASK,
-        int(seed[1]) & threefry.MASK, int(idx) & threefry.MASK, B, nwords, top_bits, L, Lf, logn,
-        int(tl["fast"] and tf["fast"]),
-    )
+    key = (int(seed[0]) & threefry.MASK, int(seed[1]) & threefry.MASK, int(idx) & threefry.MASK)
+    shape = (B, nwords, top_bits, L, Lf, logn)
+    tables = (ptr(tl["pw"]), ptr(tf["pw"]), ptr(tl["ps"]), ptr(tf["ps"]), ptr(tl["q"]),
+              ptr(tf["q"]))
+    if bs_mask_variant(tl, tf, nwords, logn) == "register":
+        BS_MASK.launch(dev, ptr(out_l), ptr(out_f), *tables, ptr(tl["mu"]), ptr(tf["mu"]), *key,
+                       *shape, bs_mask_split(B, logn))
+    else:
+        BS_MASK_GENERIC.launch(dev, ptr(out_l), ptr(out_f), *tables, *key, *shape)
     return out_l, out_f
 
 
@@ -653,9 +692,9 @@ def bs_combine(c1s, crp, sk, rows_l, rows_f, e1, mask_l, e2, mask_f, q_l, q_f, m
 def _bs_tables(ctx: C.CkksContext, rows, nwords: int):
     """Per row set: q [L, 1], mu [L], the row indices [L] int32, the word
     weights pw = 2^(24k) mod q [L, nwords] and their Shoup quotients ps =
-    floor(pw 2^32 / q), and `fast`: every prime lies in (2^24, 2^28), the
-    primes bs_mask's register kernel takes (csrc/bs_share.cu); cached on
-    ctx."""
+    floor(pw 2^32 / q), and `lazy`: bs_lazy holds for the set's largest
+    prime, as bs_mask's register kernel needs (csrc/bs_share.cu); cached
+    on ctx."""
     key = ("bs", tuple(rows), nwords)
     if key not in ctx._const_cache:
         primes = [ctx.basis.primes[r] for r in rows]
@@ -667,7 +706,7 @@ def _bs_tables(ctx: C.CkksContext, rows, nwords: int):
             "rows": torch.tensor(rows, dtype=torch.int32, device=ctx.device),
             "pw": ctx.to_dev(np.array(pw, np.uint32).reshape(len(rows), nwords)),
             "ps": ctx.to_dev(np.array(ps, np.uint32).reshape(len(rows), nwords)),
-            "fast": all(1 << 24 < q < 1 << 28 for q in primes),
+            "lazy": bs_lazy(max(primes), nwords),
         }
     return ctx._const_cache[key]
 

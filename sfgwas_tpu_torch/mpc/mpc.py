@@ -187,7 +187,7 @@ class MPC:
         flat = self.reveal_sym(flat, ring)
         out, ofs = [], 0
         for fs in full_shapes:
-            cnt = int(np.prod(fs[:-1] if L is not None else fs)) if fs else 1
+            cnt = int(math.prod(fs[:-1] if L is not None else fs))
             out.append(flat[ofs : ofs + cnt].reshape(fs))
             ofs += cnt
         return out, masks

@@ -48,6 +48,7 @@ RING_FROM_I32 = CudaKernel("ring", "ring_from_i32", [_I, _P, _P, _LL])
 RING_MUL = CudaKernel("ring", "ring_mul", [_I, _P, _P, _P, _P, _P, _LL])
 RING_MATMUL = CudaKernel("ring", "ring_matmul", [_I, _P, _P, _P, _I, _I, _I])
 RING_DOT = CudaKernel("ring", "ring_dot", [_I, _P, _P, _P, _LL, _I])
+RING_MATMUL_MAX_K = 1 << 27  # MATMUL_MAX_K in csrc/ring.cu: K10's 64-bit column sums
 
 DIGIT_BITS = 8
 SMALL = 1 << 9  # combine's bound on |sa|, |sb|: mul_int's small-constant path
@@ -119,14 +120,14 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _carry(x: torch.Tensor):
     """Exact carry over the digit axis (int64): (digits in [0, 255],
-    carry out).  Carries shrink by 2^8 a pass."""
-    out = x.clone()
+    carry out), x left as it is.  Carries shrink by 2^8 a pass."""
+    out = x
     c_out = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
     while True:
         q = out >> DIGIT_BITS
         if not bool(q.any()):
-            return out, c_out
-        out -= q << DIGIT_BITS
+            return (x.clone() if out is x else out), c_out
+        out = out & ((1 << DIGIT_BITS) - 1)  # out - (q << 8): a new tensor
         out[..., 1:] += q[..., :-1]
         c_out += q[..., -1]
 
@@ -168,13 +169,15 @@ def reduce_plain(ring, x: torch.Tensor) -> torch.Tensor:
 
 
 def _conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Digit convolution of canonical arrays -> [..., 2L-1] int64."""
+    """Digit convolution of canonical arrays -> [..., 2L-1] int64: the
+    digit products a_i b_j in an [L, 2L] row-major block (zeros past
+    column L), read with a row stride of 2L - 1 so that column k sums the
+    products with i + j = k."""
     L = a.shape[-1]
     a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
-    conv = torch.zeros(a.shape[:-1] + (2 * L - 1,), dtype=torch.int64, device=a.device)
-    for i in range(L):
-        conv[..., i : i + L] += a[..., i : i + 1] * b
-    return conv
+    outer = torch.nn.functional.pad(a[..., :, None] * b[..., None, :], (0, L))
+    skew = outer.reshape(a.shape[:-1] + (2 * L * L,))[..., : L * (2 * L - 1)]
+    return skew.reshape(a.shape[:-1] + (L, 2 * L - 1)).sum(dim=-2)
 
 
 def mul_plain(ring, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -333,6 +336,9 @@ def matmul(ring, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     k2, c, _ = B.shape
     if k != k2 or A.shape[-1] != L or B.shape[-1] != L:
         raise ValueError(f"ring_matmul: {tuple(A.shape)} x {tuple(B.shape)}")
+    if k > RING_MATMUL_MAX_K:
+        raise ValueError(f"ring_matmul: k = {k} terms; the kernel takes at most "
+                         f"{RING_MATMUL_MAX_K}")
     A, B = _aligned(A), _aligned(B)
     check(A, "A", A.device)
     check(B, "B", A.device)

@@ -93,10 +93,14 @@ def load(path: Path) -> ctypes.CDLL:
         L = ctypes.CDLL(str(path))
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        # the elementwise ops take raw pointers: their one caller
+        # (ring.Ring._native_canon2) hands them C-contiguous int32 rows, and
+        # ndpointer's checks cost more than the op at the SS protocol's sizes
         for name in ("sfg_ring_add", "sfg_ring_sub", "sfg_ring_mul"):
             fn = getattr(L, name)
             fn.restype = None
-            fn.argtypes = [ctypes.c_int, i32p, i32p, ctypes.c_int64, i32p]
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_void_p]
         L.sfg_ring_neg.restype = None
         L.sfg_ring_neg.argtypes = [ctypes.c_int, i32p, ctypes.c_int64, i32p]
         L.sfg_ring_reduce64.restype = None

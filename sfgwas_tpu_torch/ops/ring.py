@@ -41,6 +41,7 @@ to that device at every op that reads it.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -428,11 +429,14 @@ class Ring:
             or b.shape[-1] != self.nlimb
         ):
             return None
-        shape = np.broadcast_shapes(a.shape, b.shape)
-        af = np.ascontiguousarray(np.broadcast_to(a, shape)).reshape(-1, self.nlimb)
-        bf = np.ascontiguousarray(np.broadcast_to(b, shape)).reshape(-1, self.nlimb)
+        if a.shape == b.shape and a.flags.c_contiguous and b.flags.c_contiguous:
+            shape, af, bf = a.shape, a.reshape(-1, self.nlimb), b.reshape(-1, self.nlimb)
+        else:
+            shape = np.broadcast_shapes(a.shape, b.shape)
+            af = np.ascontiguousarray(np.broadcast_to(a, shape)).reshape(-1, self.nlimb)
+            bf = np.ascontiguousarray(np.broadcast_to(b, shape)).reshape(-1, self.nlimb)
         out = np.empty_like(af)
-        op(self._nid, af, bf, af.shape[0], out)
+        op(self._nid, af.ctypes.data, bf.ctypes.data, af.shape[0], out.ctypes.data)
         return out.reshape(shape)
 
     def add(self, a, b):
@@ -592,7 +596,7 @@ class Ring:
         """Uniform elements (negligible bias for p close to 2^{8L}), drawn
         as the reference draws them: nlimb bytes of rng.bytes per element."""
         shape = tuple(shape)
-        count = int(np.prod(shape, dtype=np.int64)) * self.nlimb if shape else self.nlimb
+        count = int(math.prod(shape)) * self.nlimb
         raw8 = np.frombuffer(rng.bytes(count), np.uint8).reshape(shape + (self.nlimb,))
         if self.kind != "prime":
             raw = raw8.astype(np.int32)
@@ -621,7 +625,7 @@ class Ring:
     def rand_bits(self, rng: np.random.Generator, shape, nbits: int) -> np.ndarray:
         """Uniform in [0, 2^nbits)."""
         shape = tuple(shape)
-        count = int(np.prod(shape, dtype=np.int64)) * self.nlimb if shape else self.nlimb
+        count = int(math.prod(shape)) * self.nlimb
         raw = (
             np.frombuffer(rng.bytes(count), np.uint8)
             .reshape(shape + (self.nlimb,))
@@ -756,7 +760,7 @@ class GF2Ring:
 
     def rand(self, rng: np.random.Generator, shape) -> np.ndarray:
         shape = tuple(shape)
-        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        n = int(math.prod(shape))
         raw = np.frombuffer(rng.bytes((n + 7) // 8), np.uint8)
         return np.unpackbits(raw)[:n].reshape(shape).astype(np.int8)
 

@@ -32,6 +32,7 @@ uint32.
 from __future__ import annotations
 
 import io
+import math
 import queue
 import socket
 import struct
@@ -131,7 +132,7 @@ def _dec(r: _Reader):
         dt = np.dtype(str(r.take(r.unpack("<B")), "ascii"))
         nd = r.unpack("<B")
         shape = struct.unpack_from(f"<{nd}q", r.take(8 * nd)) if nd else ()
-        count = int(np.prod(shape)) if shape else 1
+        count = math.prod(shape)
         # one copy: the array owns its memory, not a view into the frame
         return np.frombuffer(r.take(count * dt.itemsize), dtype=dt).reshape(shape).copy()
     if tag in (b"L", b"T"):

@@ -13,6 +13,7 @@ scale, and decrypt to numpy's values within the reference tests'
 tolerances."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -38,11 +39,18 @@ REF = dict(B=RB, M=RM, MM=RMM, A=RA, S=RS)
 PORT = dict(B=PB, M=PM, MM=PMM, A=PA, S=PS)
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_keys():
+    return RS.run_parties(3, lambda mpc: RM.collective_init(mpc.net, PRESET))
+
+
 @pytest.fixture(scope="module")
 def ref_keys():
     """The reference's 3-party collective keys with the default shift set,
-    as the protocol generates them."""
-    return RS.run_parties(3, lambda mpc: RM.collective_init(mpc.net, PRESET))
+    as the protocol generates them: made once a test process and shared by
+    every module that imports this fixture (each holds both packages to
+    each other under the same keys)."""
+    return _ref_keys()
 
 
 def _seeded(mpc):

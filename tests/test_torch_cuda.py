@@ -320,30 +320,92 @@ def _bs_inputs(dev, preset, rows, tgt_rows, B, nwords, fill, seed):
 @pytest.mark.parametrize("preset,nrows,ntgt,B,nwords,top_bits,logn", [
     ("TEST8", 1, 1, 1, 1, 1, None),
     ("TEST8", 3, 9, 3, 3, 23, None),
-    ("TEST10", 4, 11, 2, 5, 24, None),  # 5 words: the generic kernel
+    ("TEST10", 4, 11, 2, 5, 24, None),  # 5 words: the register kernel's 2-chunk hash
     ("PN14QP438", 3, 9, 8, 3, 23, None),  # the band refresh of the chip phase
     ("PN14QP438", 3, 17, 8, 3, 23, None),  # the top-level refresh of the chip phase
-    ("PN14QP438", 17, 17, 1, 18, 13, None),  # the widest mask of the preset (generic)
+    ("PN14QP438", 17, 17, 1, 18, 13, None),  # the widest mask of the preset
+    ("PN14QP438", 9, 11, 12, 10, 17, None),  # the QR band refresh (10 words)
+    ("PN14QP438", 5, 17, 7, 6, 21, None),  # the association's refresh of 7 products
     ("TEST8", 1, 1, 1, 1, 24, None),  # one word, all 24 bits
     ("TEST8", 2, 5, 3, 2, 1, None),
     ("TEST10", 1, 14, 2, 4, 24, None),  # four words, every row
     ("TEST8", 3, 9, 1, 4, 1, 2),  # one thread's 4 columns: the smallest ring
     ("TEST8", 1, 2, 5, 3, 24, 3),  # two threads a b
     ("TEST8", 1, 1, 70000, 1, 12, 2),  # B past the grid's y limit
-    ("PN12QP109", 3, 5, 2, 3, 24, None),  # primes below 2^24: the generic kernel's exact fold
+    ("TEST8", 2, 3, 66000, 9, 20, 2),  # the same at 9 words
+    ("PN12QP109", 3, 5, 2, 3, 24, None),  # primes below 2^24: words above q in the lazy fold
+    ("TEST8", 3, 9, 2, 19, 20, None),  # past the register kernel's words: the generic kernel
+    ("TEST8", 2, 3, 2, 3, 24, 1),  # N = 2, below a thread's 4 columns: the generic kernel
 ])
 def test_bs_mask_kernel_matches_plain(dev, preset, nrows, ntgt, B, nwords, top_bits, logn):
     PM, params, tl, tf, _ = _bs_inputs(dev, preset, tuple(range(nrows)), tuple(range(ntgt)),
                                        1, nwords, "random", 1)
     logn = logn or params.logn
     seed = (0x9E3779B9, 0x7F4A7C15)
-    before = PM.BS_MASK.launches
+    variant = PM.bs_mask_variant(tl, tf, nwords, logn)
+    assert variant == ("register" if nwords <= PM.BS_REG_WORDS and logn >= 2 else "generic")
+    kernel = PM.BS_MASK if variant == "register" else PM.BS_MASK_GENERIC
+    before = kernel.launches
     got = PM.bs_mask(tl, tf, seed, 3, B, nwords, top_bits, logn)
     torch.cuda.synchronize()
-    assert PM.BS_MASK.launches == before + 1
+    assert kernel.launches == before + 1
     want = PM.bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], seed, 3, B, nwords, top_bits,
                             1 << logn)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("preset,nrows,ntgt,B,nwords,top_bits,logn", [
+    ("PN14QP438", 3, 17, 8, 3, 23, None),
+    ("PN14QP438", 5, 17, 7, 6, 21, None),
+    ("PN14QP438", 17, 17, 1, 18, 13, None),
+    ("PN14QP438", 1, 2, 3, 7, 23, 9),  # rows fewer than the split
+    ("TEST8", 3, 9, 2, 4, 1, 2),  # N = 4: most of a block's runs idle at the barrier
+    ("TEST8", 2, 3, 70000, 9, 20, 2),  # B past the grid's y limit: the tile reused
+])
+def test_bs_mask_register_kernel_at_each_split(dev, monkeypatch, preset, nrows, ntgt, B, nwords,
+                                               top_bits, logn, split):
+    """The register kernel with 1, 2 or 4 warps sharing a run of
+    coefficients, whichever bs_mask_split would pick."""
+    PM, params, tl, tf, _ = _bs_inputs(dev, preset, tuple(range(nrows)), tuple(range(ntgt)),
+                                       1, nwords, "random", 1)
+    logn = logn or params.logn
+    monkeypatch.setattr(PM, "bs_mask_split", lambda *a: split)
+    seed = (0x0BADCAFE, split)
+    before = PM.BS_MASK.launches
+    got = PM.bs_mask(tl, tf, seed, 5, B, nwords, top_bits, logn)
+    torch.cuda.synchronize()
+    assert PM.BS_MASK.launches == before + 1
+    want = PM.bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], seed, 5, B, nwords, top_bits,
+                            1 << logn)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("nwords", range(5, 19))
+def test_bs_mask_register_kernel_every_word_count(dev, nwords):
+    """The register kernel at every word count PN14QP438's refreshes from
+    five primes up draw (nmod + 1 words at nmod 5..17), on the rows of that
+    refresh and every row of the chain as targets; the generic kernel on
+    the same tables gives the same bits."""
+    nmod = nwords - 1
+    PM, params, tl, tf, _ = _bs_inputs(dev, "PN14QP438", tuple(range(nmod)),
+                                       tuple(range(get_params("PN14QP438").nq)), 1, nwords,
+                                       "random", 1)
+    seed, top = (0x12345678, nwords), 1 + (7 * nwords) % 24
+    assert PM.bs_mask_variant(tl, tf, nwords, params.logn) == "register"
+    before = PM.BS_MASK.launches
+    got = PM.bs_mask(tl, tf, seed, nwords, 2, nwords, top, params.logn)
+    torch.cuda.synchronize()
+    assert PM.BS_MASK.launches == before + 1
+    want = PM.bs_mask_plain(tl["pw"], tf["pw"], tl["q"], tf["q"], seed, nwords, 2, nwords, top,
+                            params.n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    lazy = {"lazy": False}
+    before = PM.BS_MASK_GENERIC.launches
+    gen = PM.bs_mask({**tl, **lazy}, {**tf, **lazy}, seed, nwords, 2, nwords, top, params.logn)
+    torch.cuda.synchronize()
+    assert PM.BS_MASK_GENERIC.launches == before + 1
+    assert torch.equal(gen[0], want[0]) and torch.equal(gen[1], want[1])
 
 
 @pytest.mark.parametrize("fill", ["random", "zero", "top"])
@@ -424,6 +486,10 @@ def test_kernel_limits_match_their_wrappers(dev):
     from sfgwas_tpu_torch.mpc import mhe as PM
 
     assert cuda_build.load("bs_share").bs_max_words() == PM.BS_MAX_WORDS
+    assert cuda_build.load("bs_share").bs_reg_words() == PM.BS_REG_WORDS
+    from sfgwas_tpu_torch.ops import cuda_ring
+
+    assert cuda_build.load("ring").ring_matmul_max_k() == cuda_ring.RING_MATMUL_MAX_K
     assert cuda_build.load("crt_lift").crt_lift_max_rows() == rns.CRT_LIFT_MAX_ROWS
     assert cuda_build.load("crt_lift").crt_lift_max_group() == rns.CRT_LIFT_MAX_GROUP
 
@@ -770,7 +836,13 @@ def test_ring_mul_kernel_matches_plain(dev, name, shape_a, shape_b):
                        cuda_ring.mul_plain(ring, top.cpu(), top.cpu()))
 
 
-@pytest.mark.parametrize("r,k,c", [(1, 1, 1), (6, 6, 6), (3, 900, 2), (2, 33, 130)])
+@pytest.mark.parametrize("r,k,c", [
+    (1, 1, 1), (6, 6, 6), (3, 900, 2), (2, 33, 130),
+    (6, 1, 6),  # k = 1: one term slot of the warp busy
+    (5, 3, 7),  # 35 outputs: not a multiple of a block's 4 warps
+    (7, 7, 7),  # 49 outputs, past phase 16's largest product (6 x 6 x 6)
+    (1, 65, 3),  # k past two rounds of every lane's term slots
+])
 @pytest.mark.parametrize("name", RING_NAMES)
 def test_ring_matmul_kernel_matches_plain(dev, name, r, k, c):
     """K10 at k past the reference's 896-term chunk, and at every product
@@ -788,6 +860,16 @@ def test_ring_matmul_kernel_matches_plain(dev, name, r, k, c):
     topb = top[:1].reshape(k, 1, ring.nlimb).expand(k, c, ring.nlimb).contiguous()
     assert torch.equal(cuda_ring.matmul(ring, top, topb).cpu(),
                        cuda_ring.matmul_plain(ring, top.cpu(), topb.cpu()))
+
+
+def test_ring_matmul_refuses_k_past_its_column_sums(dev):
+    from sfgwas_tpu_torch.ops import cuda_ring
+    from sfgwas_tpu_torch.ops import ring as PR
+
+    k = cuda_ring.RING_MATMUL_MAX_K + 1
+    row = torch.zeros((1, 1, 32), dtype=torch.int32, device=dev)  # expanded: no memory
+    with pytest.raises(ValueError, match="at most"):
+        cuda_ring.matmul(PR.LElem256, row.expand(1, k, 32), row.expand(k, 1, 32))
 
 
 @pytest.mark.parametrize("n,k", [(1, 1), (129, 37), (7, 1000)])

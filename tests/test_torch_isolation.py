@@ -143,7 +143,7 @@ def test_wrappers_take_plain_path_on_cpu():
     assert torch.equal(PC.uniform_mod(q, mu, seed, 3, 2, basis.logn),
                        PC.uniform_mod_plain(q, seed, 3, 2, basis.n))
     pw = torch.ones((2, 3), dtype=torch.int32)
-    tab = {"pw": pw, "ps": pw, "q": q, "mu": mu, "fast": True}  # as _bs_tables holds them
+    tab = {"pw": pw, "ps": pw, "q": q, "mu": mu, "lazy": True}  # as _bs_tables holds them
     m = PM.bs_mask(tab, tab, seed, 0, 2, 3, 5, basis.logn)
     p = PM.bs_mask_plain(pw, pw, q, q, seed, 0, 2, 3, 5, basis.n)
     assert torch.equal(m[0], p[0]) and torch.equal(m[1], p[1])
@@ -169,6 +169,7 @@ def test_wrappers_take_plain_path_on_cpu():
     assert torch.equal(cuda_ring.from_i32(ring, v), cuda_ring.from_i32_plain(ring, v))
     assert {k: v.launches for k, v in cuda_build.REGISTRY.items()} == before
     assert set(cuda_build.REGISTRY) == {"ntt_fwd", "ntt_inv", "ks_digit_product", "mac_dense",
-                                        "uniform_mod", "bs_mask", "bs_combine", "crt_lift",
+                                        "uniform_mod", "bs_mask", "bs_mask_generic",
+                                        "bs_combine", "crt_lift",
                                         "ring_reduce", "ring_combine", "ring_sum",
                                         "ring_from_i32", "ring_mul", "ring_matmul", "ring_dot"}

@@ -20,6 +20,7 @@ Every ciphertext of Q must be bit-equal to the reference's, with the same
 level and scale; no step is exempt."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -81,6 +82,7 @@ def case():
     return TEST8
 
 
+@functools.lru_cache(maxsize=None)
 def _keys(case):
     return RS.run_parties(3, lambda mpc: RM.collective_init(
         mpc.net, case.preset, shifts_override=_shifts(case.slots)))
@@ -88,6 +90,9 @@ def _keys(case):
 
 @pytest.fixture(scope="module")
 def ref_keys(case):
+    """The reference's collective keys for the module's case: made once a
+    case and test process, shared by every module that imports this
+    fixture."""
     return _keys(case)
 
 

@@ -87,13 +87,20 @@ def pair(request):
     return p
 
 
+@pytest.fixture(scope="module")
+def single_and_ref_sharded(pair):
+    """The port's single-device product and the reference's sharded one
+    (over jax.local_devices()), which both slot counts compare against."""
+    return (PMM.mat_mult_cached(pair["pcps"], pair["pA"], pair["pcache"]),
+            RMM.mat_mult_sharded(pair["rcps"], pair["A"], pair["rcache"],
+                                 devices=jax.local_devices()))
+
+
 @pytest.mark.parametrize("slots", [2, 3])
-def test_sharded_bit_equal_to_single_device_and_reference(pair, slots):
+def test_sharded_bit_equal_to_single_device_and_reference(pair, single_and_ref_sharded, slots):
     pcps, pA, pcache = pair["pcps"], pair["pA"], pair["pcache"]
-    single = PMM.mat_mult_cached(pcps, pA, pcache)
+    single, ref_sharded = single_and_ref_sharded
     sharded = PMM.mat_mult_sharded(pcps, pA, pcache, devices=[CPU] * slots)
-    ref_sharded = RMM.mat_mult_sharded(pair["rcps"], pair["A"], pair["rcache"],
-                                       devices=jax.local_devices())
     assert len(jax.local_devices()) == 8
     assert_same(single, pair["ref"])
     assert_same(sharded, pair["ref"])

@@ -1,8 +1,8 @@
 """What the threefry kernels K4 (sfgwas_tpu_torch/csrc/crp.cu, uniform_mod)
 and K5's bs_mask (csrc/bs_share.cu) compute, modelled on the CPU: their
 32-bit counter halves, the constants they read off the 64-bit Barrett
-constant, the 32-bit Barrett and Shoup folds with their lazy bounds, and
-bs_mask's exact 64-bit generic fold.  The model runs the kernels' wrapping
+constant, the 32-bit Barrett and Shoup folds with their lazy bounds,
+bs_mask's generic fold, and which of bs_mask's two kernels a table takes.  The model runs the kernels' wrapping
 uint32 arithmetic in numpy and is held bit-equal to the plain versions
 ckks.uniform_mod_plain and mhe._fold_words / bs_mask_plain."""
 
@@ -73,7 +73,9 @@ def test_model_constants_are_the_kernels():
     assert re.search(rf"constexpr int MASK_VEC = {VEC};", bs)
     for src in (crp, bs):
         assert "make_uint4(o[0], o[1], o[2], o[3])" in src  # one 16-byte store of VEC words
-    assert "(2^24, 2^28)" in bs  # the fast path's primes, as _bs_tables decides them
+    # the register kernel's bound on the lazy sum, as bs_lazy decides it
+    assert "2 (nwords + 1) q_max < 2^32" in bs
+    assert re.search(rf"constexpr int REG_WORDS = {PM.BS_REG_WORDS};", bs)
 
 
 @pytest.mark.parametrize("preset", PRESETS)
@@ -226,15 +228,17 @@ def _mask_fold_generic(u, t, h):
     return np.stack(out)
 
 
-@pytest.mark.parametrize("nwords,top_bits", [(1, 1), (1, 24), (2, 13), (3, 23), (4, 24), (4, 1)])
+@pytest.mark.parametrize("nwords,top_bits", [(1, 1), (1, 24), (2, 13), (3, 23), (4, 24), (4, 1),
+                                            (5, 24), (6, 21), (10, 17), (18, 13)])
 @pytest.mark.parametrize("preset", PRESETS)
 def test_mask_fold_is_fold_words(preset, nwords, top_bits):
-    """The fast fold (every prime of these presets lies in (2^24, 2^28))
-    and the generic fold against the plain _fold_words, edge words included."""
+    """The register kernel's lazy fold (its bound holds at every prime of
+    these presets) and the generic fold against the plain _fold_words,
+    edge words included."""
     rows = tuple(range(min(5, get_params(preset).nq + 1)))
     ctx, w, u, h = _mask_case(preset, rows, nwords, top_bits, 2, 5, (11, 12))
     t = PM._bs_tables(ctx, rows, nwords)
-    assert t["fast"]
+    assert t["lazy"]
     want = rns.to_u32(PM._fold_words(w, t["pw"], t["q"])).astype(np.uint64)
     assert np.array_equal(_mask_fold_fast(u, t, h), want)
     assert np.array_equal(_mask_fold_generic(u, t, h), want)
@@ -242,25 +246,70 @@ def test_mask_fold_is_fold_words(preset, nwords, top_bits):
 
 @pytest.mark.parametrize("nwords,top_bits", [(3, 24), (5, 20)])
 def test_generic_fold_with_primes_below_the_top_word(nwords, top_bits):
-    """PN12's 18-19-bit primes take the generic kernel (not fast), whose
-    centring stays exact where h = 2^(top_bits-1) exceeds q."""
+    """PN12's 18-19-bit primes, below the 24-bit words: both folds stay
+    exact where a word and h = 2^(top_bits-1) exceed q.  The register
+    kernel takes them (its lazy bound holds); the generic kernel's fold is
+    held to the same bits."""
     rows = (0, 1, 2)
     ctx, w, u, h = _mask_case("PN12QP109", rows, nwords, top_bits, 2, 3, (1, 2))
     t = PM._bs_tables(ctx, rows, nwords)
-    assert not t["fast"] and h > max(ctx.basis.primes[r] for r in rows)
+    assert t["lazy"] and h > max(ctx.basis.primes[r] for r in rows)
+    assert PM.bs_mask_variant(t, t, nwords, 12) == "register"
     want = rns.to_u32(PM._fold_words(w, t["pw"], t["q"])).astype(np.uint64)
+    assert np.array_equal(_mask_fold_fast(u, t, h), want)
     assert np.array_equal(_mask_fold_generic(u, t, h), want)
+
+
+@pytest.mark.parametrize("preset", ["PN12QP109", "TEST8", "PN14QP438", "PN15QP880"])
+def test_bs_tables_lazy_is_the_bound_on_the_largest_prime(preset):
+    """`lazy` of _bs_tables is 2 (nwords + 1) q_max < 2^32 on the row set's
+    own largest prime, at every word count the preset's masks draw and one
+    past the bound; bs_lazy at its edge."""
+    params = get_params(preset)
+    ctx = PC.CkksContext(params, device="cpu")
+    rows = tuple(range(params.nq))
+    q_max = max(params.basis.primes[r] for r in rows)
+    edge = (1 << 32) // (2 * q_max) - 1  # the most words the bound takes
+    for nwords in sorted({PM._mask_bits(params, nm, 3)[0] for nm in range(1, params.nq + 1)}
+                         | {edge, edge + 1}):
+        t = PM._bs_tables(ctx, rows, nwords)
+        assert t["lazy"] == (2 * (nwords + 1) * q_max < 1 << 32) == (nwords <= edge)
+    assert PM.bs_lazy((1 << 31) - 1, 0) is True and PM.bs_lazy(1 << 31, 0) is False
+    assert PM.bs_lazy(1 << 26, 30) is True and PM.bs_lazy(1 << 26, 31) is False
+
+
+def test_bs_mask_variant_rule():
+    """The register kernel for 1..BS_REG_WORDS words on tables that pass
+    the lazy bound at N >= 4; the generic kernel for more words, for a row
+    set past the bound (either one) and for N < 4."""
+    ok, past = {"lazy": True}, {"lazy": False}
+    for nwords in range(1, PM.BS_MAX_WORDS + 1):
+        want = "register" if nwords <= PM.BS_REG_WORDS else "generic"
+        assert PM.bs_mask_variant(ok, ok, nwords, 14) == want
+        assert PM.bs_mask_variant(ok, past, nwords, 14) == "generic"
+        assert PM.bs_mask_variant(past, ok, nwords, 14) == "generic"
+    assert PM.bs_mask_variant(ok, ok, 3, 2) == "register"
+    assert PM.bs_mask_variant(ok, ok, 3, 1) == "generic"
+    # PN14QP438's refreshes: nmod 1..17 prime rows, every word count the register kernel's
+    params = get_params("PN14QP438")
+    ctx = PC.CkksContext(params, device="cpu")
+    for nmod in range(1, params.nq + 1):
+        nwords, _ = PM._mask_bits(params, nmod, 3)
+        tl = PM._bs_tables(ctx, tuple(range(nmod)), nwords)
+        tf = PM._bs_tables(ctx, tuple(range(params.nq)), nwords)
+        assert PM.bs_mask_variant(tl, tf, nwords, params.logn) == "register"
 
 
 @pytest.mark.parametrize("preset,nrows,ntgt,B,nwords,top_bits", [
     ("TEST8", 3, 9, 3, 3, 23),
     ("TEST10", 1, 4, 2, 1, 24),
     ("PN14QP438", 3, 17, 1, 3, 23),
+    ("PN14QP438", 9, 11, 2, 10, 17),
 ])
 def test_mask_model_is_bs_mask_plain(preset, nrows, ntgt, B, nwords, top_bits):
-    """The whole fast kernel on a small draw: its counters ((k B + b) N + n
-    from the block's base), the masked words and the fold of both row sets,
-    against bs_mask_plain."""
+    """The whole register kernel on a small draw: its counters ((k B + b) N
+    + n from the block's base), the masked words and the fold of both row
+    sets, against bs_mask_plain."""
     params = get_params(preset)
     logn = 5
     n = 1 << logn
@@ -284,3 +333,22 @@ def test_mask_model_is_bs_mask_plain(preset, nrows, ntgt, B, nwords, top_bits):
     # the wrapper on CPU tables is the plain version
     got = PM.bs_mask(tl, tf, seed, idx, B, nwords, top_bits, logn)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_bs_mask_split_rule():
+    """Warps share a run only where the grid would leave SMs idle: the
+    split doubles while the blocks (B N / 512) times it stay below
+    BS_SPLIT_BLOCKS, up to 4."""
+    assert PM.bs_mask_split(1, 14) == 4  # 32 blocks: the widest mask's single refresh
+    assert PM.bs_mask_split(7, 14) == 4  # 224 blocks: the association's 7 products
+    assert PM.bs_mask_split(8, 14) == 4  # 256: the MHE phase's refreshes of 8
+    assert PM.bs_mask_split(12, 14) == 2  # 384: the QR band refresh
+    assert PM.bs_mask_split(17, 14) == 1  # 544
+    assert PM.bs_mask_split(1, 2) == 4 and PM.bs_mask_split(70000, 2) == 1
+    for B in range(1, 40):
+        for logn in (2, 9, 12, 14, 15):
+            split = PM.bs_mask_split(B, logn)
+            blocks = B * max(1, (1 << logn) // 512)
+            assert split in (1, 2, 4)
+            assert split == 4 or blocks * split >= PM.BS_SPLIT_BLOCKS
+            assert split == 1 or blocks * split // 2 < PM.BS_SPLIT_BLOCKS
