@@ -1,0 +1,7 @@
+"""The card's idle share of the traced window, 1 - busy / window, in % (torch.profiler over every thread)."""
+
+from gwasbench import readers
+
+
+def read(run):
+    return readers.idle_share(run)
